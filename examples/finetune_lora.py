@@ -1,7 +1,9 @@
 """LoRA fine-tuning: adapter-only training over a frozen FlashLM base.
 
-Run (CPU or TPU):
+Run on the GPU, or on the CPU with the kernels interpreted:
     python examples/finetune_lora.py --steps 20 --rank 8
+    JAX_PLATFORMS=cpu FLASH_ATTENTION_INTERPRET=1 \
+      python examples/finetune_lora.py --steps 20 --rank 8
 
 Demonstrates the parameter-efficient loop: the base model stays frozen
 (bit-identical), AdamW state is adapter-sized, and the merged tree drops
@@ -13,6 +15,7 @@ import argparse
 import jax
 import jax.numpy as jnp
 
+from flash_attention_metal_tpu.utils.comp_cache import enable_compilation_cache
 from flash_attention_metal_tpu.models import (
     LoRAConfig,
     ModelConfig,
@@ -27,6 +30,7 @@ from flash_attention_metal_tpu.runtime import DecodeEngine, Request
 
 
 def main():
+    enable_compilation_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--rank", type=int, default=8)

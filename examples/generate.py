@@ -18,11 +18,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from flash_attention_metal_tpu.utils.comp_cache import enable_compilation_cache
 from flash_attention_metal_tpu.models import ModelConfig, init_params
 from flash_attention_metal_tpu.runtime.engine import DecodeEngine, Request
 
 
 def main() -> int:
+    enable_compilation_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--kv-quant", choices=["int8", "fp8"], default=None)
     ap.add_argument("--rolling", action="store_true",

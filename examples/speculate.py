@@ -19,11 +19,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from flash_attention_metal_tpu.utils.comp_cache import enable_compilation_cache
 from flash_attention_metal_tpu.models import ModelConfig, init_params
 from flash_attention_metal_tpu.runtime import speculative_generate
 
 
 def main() -> int:
+    enable_compilation_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--gamma", type=int, default=4)
     ap.add_argument("--temperature", type=float, default=0.0)

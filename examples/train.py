@@ -13,6 +13,7 @@ import argparse
 
 import jax.numpy as jnp
 
+from flash_attention_metal_tpu.utils.comp_cache import enable_compilation_cache
 from flash_attention_metal_tpu.models import ModelConfig
 from flash_attention_metal_tpu.models.trainer import (
     Trainer,
@@ -22,6 +23,7 @@ from flash_attention_metal_tpu.models.trainer import (
 
 
 def main() -> int:
+    enable_compilation_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--ckpt", default=None)

@@ -1,12 +1,12 @@
-"""TPU-native flash-attention framework.
+"""Flash-attention framework in JAX for NVIDIA GPUs.
 
-A brand-new JAX/Pallas re-design of the capabilities of
-``2thleZ/flash_attention_metal`` (see SURVEY.md): the full kernel ladder
-(naive -> tiled V1 -> tuned V2 -> MXU half-precision with causal/LSE ->
-FA-2 backward -> quantized KV), a golden-oracle verification ladder, a
-roofline-aware benchmark harness, and — beyond the reference's single-chip
-scope — ring/sequence-parallel attention over device meshes and a
-continuous-batching decode runtime.
+A JAX/Pallas re-design of the capabilities of
+``2thleZ/flash_attention_metal`` (see SURVEY.md): a flash-attention
+forward and FA-2 backward as Triton-route Pallas kernels (with causal,
+window, segments, softcap, ALiBi, dropout, 8-bit and paged KV), checks
+of every kernel against a golden oracle, and — beyond the reference's
+single-device scope — ring/sequence-parallel attention over device
+meshes, sharded training and a continuous-batching decode runtime.
 """
 
 from .config import AttentionConfig, BlockSizes

@@ -1,11 +1,11 @@
-"""Configuration layer for the TPU flash-attention framework.
+"""Configuration layer for the flash-attention framework.
 
 The Metal reference has no config system: tile sizes are hardwired kernel
 constants (reference ``kernels.metal:69-70,188-189,617-619``), the problem
 shape is a global compile-time constant (``main.mm:11-13``), and runtime
 parameters travel as raw ``setBytes`` scalars (``main.mm:421-432``).  Here
 those become typed dataclasses: block sizes are *parameters* that Pallas
-specializes on at trace time (the TPU analog of recompiling the ``.metal``
+specializes on at trace time (the analog of recompiling the ``.metal``
 source with different constants), and the attention call signature is a
 typed Python API instead of a positional buffer ABI.
 """
@@ -16,102 +16,63 @@ import dataclasses
 from typing import Optional
 
 import jax
-import jax.numpy as jnp
 
 # Default head dim mirrors the reference's structural D=64 assumption
 # (reference ``main.mm:12``, ``kernels.metal:31``), but here it is a real
-# parameter: any D that the MXU can tile (64, 128, 256, ...) works.
+# parameter: any head dim works (the kernels pad it to a power of two).
 DEFAULT_HEAD_DIM = 64
 
-# TPU lane count — the minimum useful block size in either score dimension.
-NUM_LANES = 128
-NUM_SUBLANES = 8
 
-# Mask additive constant.  -0.7 * float32_max rather than -inf so that
-# exp(mask - mask) never produces NaN for fully-masked rows.
-DEFAULT_MASK_VALUE = -0.7 * float(jnp.finfo(jnp.float32).max)
+def _pow2_at_least_16(name: str, v: int) -> None:
+    if v < 16 or v & (v - 1):
+        raise ValueError(
+            f"{name}={v} must be a power of two >= 16 (Triton block shapes "
+            "are powers of two, and its dot needs 16 rows and columns)"
+        )
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockSizes:
-    """Kernel tile sizes (the analog of the reference's Br/Bc constants).
+    """Triton kernel tiles (the analog of the reference's Br/Bc constants).
 
     The reference studied 16x16 vs 32x32 threadgroup tiles and found the
-    larger tile regressed from register spill (``README.md:25-28``).  On TPU
-    the equivalent trade-off is VMEM footprint vs. pipeline depth, and the
-    minimum tile is 128 lanes, so the sweep space starts at 128.
+    larger tile regressed from register spill (``README.md:25-28``).  On
+    Hopper the same trade holds per thread block: the fp32 accumulator
+    and score tile live in registers, so tiles stay small and many
+    blocks run at once.  ``None`` fields are derived from the head dim
+    and sequence lengths (``resolve``).
 
-    * ``block_q``          — Q-sequence tile per grid step.
-    * ``block_k_major``    — KV-sequence tile fetched from HBM per grid step
-                             (controls DMA size; Pallas double-buffers these
-                             fetches automatically — the idiomatic analog of
-                             the reference V2 ping-pong buffers,
-                             ``kernels.metal:531-588``).
-    * ``block_k``          — inner KV sub-tile processed per MXU matmul
-                             (controls the live score-tile VMEM footprint).
-    * ``block_q_dkv`` etc. — backward-pass tiles; the FA-2 backward kernels
-                             have different iteration patterns so they get
-                             independent tile sizes.
+    * ``block_q`` / ``block_k``       -- forward: query rows per program,
+                                         KV rows per loop step.
+    * ``block_q_bwd`` / ``block_k_bwd`` -- backward: the tile both the
+                                         dK/dV and the dQ kernel use.
     """
 
-    block_q: int = 1024
-    block_k_major: int = 1024
-    block_k: int = 1024
-
-    # Lean (single-KV-block) path: accumulate o^T = V^T P^T so the PV
-    # matmul's output is [D, block_q]-wide instead of D-narrow (the
-    # 39-49%-of-peak matmul class, experiments/mxu_rates.py); one XLA
-    # transpose outside.  Raced per shape by the autotuner.
-    lean_pv_t: bool = False
-
-    # dK/dV kernel: outer grid over KV blocks, inner reduction over Q blocks.
-    block_kv_dkv: int = 1024
-    block_q_dkv: int = 1024
-
-    # dQ kernel: outer grid over Q blocks, inner reduction over KV blocks.
-    block_q_dq: int = 1024
-    block_kv_dq: int = 1024
-
-    # Fused 5-matmul backward (one kernel, dQ partials in HBM): large KV
-    # blocks amortize the partial-sum traffic (num_kv_blocks copies of dQ).
-    block_q_fused: int = 512
-    block_kv_fused: int = 2048
+    block_q: Optional[int] = None
+    block_k: Optional[int] = None
+    block_q_bwd: Optional[int] = None
+    block_k_bwd: Optional[int] = None
 
     def __post_init__(self):
-        for name in (
-            "block_q",
-            "block_k_major",
-            "block_k",
-            "block_kv_dkv",
-            "block_q_dkv",
-            "block_q_dq",
-            "block_kv_dq",
-            "block_q_fused",
-            "block_kv_fused",
-        ):
-            v = getattr(self, name)
-            if v % NUM_LANES != 0:
-                raise ValueError(
-                    f"{name}={v} must be a multiple of {NUM_LANES} (TPU lane count)"
-                )
-        if self.block_k_major % self.block_k != 0:
-            raise ValueError("block_k must divide block_k_major")
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if v is not None:
+                _pow2_at_least_16(f.name, v)
 
-    @classmethod
-    def for_seq_len(cls, q_len: int, kv_len: int) -> "BlockSizes":
-        """Pick sane defaults given a (possibly short) sequence length."""
-        bq = min(1024, max(NUM_LANES, q_len))
-        bkM = min(1024, max(NUM_LANES, kv_len))
-        bk = min(1024, bkM)
-        b = min(1024, max(NUM_LANES, min(q_len, kv_len)))
-        return cls(
-            block_q=bq,
-            block_k_major=bkM,
-            block_k=bk,
-            block_kv_dkv=min(b, kv_len) if kv_len >= NUM_LANES else NUM_LANES,
-            block_q_dkv=min(b, q_len) if q_len >= NUM_LANES else NUM_LANES,
-            block_q_dq=min(b, q_len) if q_len >= NUM_LANES else NUM_LANES,
-            block_kv_dq=min(b, kv_len) if kv_len >= NUM_LANES else NUM_LANES,
+    def resolve(self, n_q: int, n_kv: int, head_dim: int) -> "BlockSizes":
+        """Fill unset tiles: 128x64 forward, 64x64 backward (64 x 32 at
+        head dim 256, where registers run out), shrunk to the next power
+        of two of short sequences (never below 16)."""
+
+        def fit(v, n):
+            return max(16, min(v, 1 << max(n - 1, 1).bit_length()))
+
+        wide = head_dim > 128
+        return BlockSizes(
+            block_q=self.block_q or fit(64 if wide else 128, n_q),
+            block_k=self.block_k or fit(32 if wide else 64, n_kv),
+            block_q_bwd=self.block_q_bwd or fit(64, n_q),
+            block_k_bwd=self.block_k_bwd or fit(32 if wide else 64, n_kv),
         )
 
 

@@ -1,6 +1,5 @@
-"""Verification ladder + benchmark harness (reference parity: H4, H5, P1)."""
+"""Kernel checks and serving/training measurement harnesses."""
 
-from .verify import RungResult, run_ladder
-from .benchmark import run_high_occupancy, run_sweep
+from .verify import CHECKS, FULL, SMALL, RungResult, run_kernel_checks
 
-__all__ = ["RungResult", "run_ladder", "run_high_occupancy", "run_sweep"]
+__all__ = ["CHECKS", "FULL", "SMALL", "RungResult", "run_kernel_checks"]

@@ -5,10 +5,10 @@ from 1 host to N hosts on the ring/sequence-parallel decode path.  This
 harness measures attention throughput for a fixed *global* problem at
 increasing sequence-shard counts over whatever devices exist:
 
-* on a real multi-chip slice it reports true scaling efficiency over ICI;
-* on this environment's single chip / virtual CPU mesh it degrades to a
-  functional smoke of the same code path (numbers are not efficiency
-  claims there — the "interconnect" is host memory).
+* on several GPUs it reports scaling efficiency over their interconnect;
+* on a virtual CPU mesh it is a functional smoke of the same code path
+  (numbers are not efficiency claims there — the "interconnect" is host
+  memory).
 
 Run: ``python -m flash_attention_metal_tpu.harness.scaling``
 """
@@ -39,9 +39,9 @@ def run_scaling(
     if shard_counts is None:
         shard_counts = [c for c in (1, 2, 4, 8, 16) if c <= n_dev]
 
-    on_tpu = jax.default_backend() == "tpu"
+    on_gpu = jax.default_backend() == "gpu"
     iters = 10
-    if not on_tpu:
+    if not on_gpu:
         # CPU virtual mesh runs the kernels in interpreter mode: shrink
         # the problem so this stays a functional smoke, not an hour-long
         # interpreted crawl.
@@ -79,11 +79,11 @@ def main() -> int:
     print(f"devices: {len(jax.devices())} x {jax.devices()[0].device_kind}")
     rows = run_scaling()
     backend = jax.default_backend()
-    meaningful = backend == "tpu" and len(jax.devices()) > 1
+    meaningful = backend == "gpu" and len(jax.devices()) > 1
     payload = {
         "backend": backend,
         "devices": len(jax.devices()),
-        # Scaling efficiency is only meaningful over real ICI.  A virtual
+        # Scaling efficiency is only meaningful across real cards.  A virtual
         # CPU mesh shares one socket's memory bandwidth across all
         # "devices", so its efficiency numbers measure host contention,
         # not the framework — mark them so nobody reads them as results.
@@ -92,7 +92,7 @@ def main() -> int:
             "functional smoke on a virtual single-host mesh; "
             "efficiency numbers are NOT meaningful"
             if not meaningful
-            else "measured over ICI"
+            else "measured across GPUs"
         ),
         "rows": rows,
     }

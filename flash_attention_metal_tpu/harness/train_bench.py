@@ -20,7 +20,7 @@ import jax.numpy as jnp
 
 from ..models import ModelConfig, init_params
 from ..models.transformer import sgd_train_step
-from ..utils import detect_chip
+from ..utils import chip_spec
 from ..utils.timing import measure_compiled
 
 
@@ -78,7 +78,7 @@ def run_train_bench(
 
     toks = batch * seq
     flops = model_flops_per_token(cfg, seq) * toks
-    spec = detect_chip()
+    spec = chip_spec()
     result = {
         "model": {
             "n_layers": n_layers,
@@ -118,7 +118,7 @@ def main() -> int:
     ap.add_argument("--seq", type=int, default=2048)
     ap.add_argument(
         "--softcap", type=float, default=None,
-        help="tanh logit softcap (Gemma-2 style); exercises the round-4 "
+        help="tanh logit softcap (Gemma-2 style); exercises the "
         "in-kernel softcap backward on the training path",
     )
     args = ap.parse_args()

@@ -1,43 +1,79 @@
-"""Verification ladder (reference parity: H4, ``main.mm:231-594,1181-1194``).
+"""Kernel checks: every Pallas kernel against the plain reference.
 
-Each rung is compared with max-abs-diff at the reference's tolerance, and
-rungs chain exactly like the reference: fp32 kernels anchor to the golden
-oracle, upper rungs difference against the verified naive rung, causal and
-backward get dedicated fixtures.  Per-rung PASS/FAIL lines mirror the
-reference binary's stdout contract.
+The reference verifies each kernel against its CPU golden oracle at a
+fixed tolerance ladder and prints PASS/FAIL per rung
+(``main.mm:231-594,1181-1194``).  Here every translated kernel, and each
+feature combination the op exposes, is compared with
+``reference/oracle.py`` (fp32 math under
+``jax.default_matmul_precision("highest")``) at the ladder's tolerances:
+fp32 1e-3, half 1e-2, backward 1e-1 (``main.mm:239,452,1191``), 8-bit KV
+3e-2 (int8) / 5e-2 (fp8).
 
-Run: ``python -m flash_attention_metal_tpu.harness.verify``
+``SMALL`` shapes run on the CPU in interpret mode (the test suite runs
+each check); ``FULL`` shapes are Llama-3.1-8B attention widths and run on
+the GPU (``chip_smoke.py``).
+
+Run: ``python -m flash_attention_metal_tpu.harness.verify [--full]``
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List
 
 import jax
 import jax.numpy as jnp
 
+from ..config import SegmentIds
 from ..kernels import (
-    flash_attention_bwd,
-    flash_attention_fwd,
-    flash_attention_mxu,
-    flash_attention_v1,
-    flash_attention_v2,
-    naive_attention,
+    flash_attention_paged,
+    flash_attention_paged_quant,
+    flash_attention_quant,
+    quantize_kv,
 )
-from ..reference import (
-    attention_reference,
-    attention_reference_bwd,
-    make_qkv,
+from ..kernels._common import dropout_keep, pack_dropout_seed
+from ..ops.attention import (
+    flash_attention,
+    fold_gqa_rows,
+    gqa_decode_attention,
+    unfold_gqa_rows,
 )
+from ..reference import attention_reference, attention_reference_with_lse
+from ..runtime.kv_cache import rolling_slots
 
-# The reference tolerance ladder (SURVEY.md §2 H4).
 TOL_FP32 = 1e-3  # main.mm:239,253,292
-TOL_V3 = 5e-3  # main.mm:375
 TOL_HALF = 1e-2  # main.mm:452,591
 TOL_BWD = 1e-1  # main.mm:1191
-TOL_QUANT_INT8 = 3e-2  # int8 KV rung: 7 effective mantissa bits
-TOL_QUANT_FP8 = 5e-2  # fp8(e4m3) KV rung: 3 mantissa bits -> ~2x int8 error
+TOL_QUANT = {"int8": 3e-2, "float8_e4m3fn": 5e-2}
+
+DOT_PRECISION = (
+    "kernel dots: bf16/fp16 and 8-bit operands on the tensor cores with "
+    "fp32 accumulation; fp32 operands in full-precision fp32 "
+    "(Precision.HIGHEST, no TF32); oracle in fp32 under "
+    "default_matmul_precision('highest')"
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sizes:
+    """Shapes of one run of the checks."""
+
+    batch: int
+    q_heads: int
+    kv_heads: int
+    seq: int
+    head_dim: int
+    decode_batch: int
+    cache: int
+    page: int
+    window: int
+
+
+# Llama-3.1-8B attention (meta-llama/Llama-3.1-8B config.json): 32 query
+# heads, 8 KV heads, head dim 128; 4k training sequence, 32k decode cache.
+FULL = Sizes(1, 32, 8, 4096, 128, 8, 32768, 128, 1024)
+SMALL = Sizes(1, 4, 2, 256, 64, 2, 512, 64, 96)
 
 
 @dataclasses.dataclass
@@ -60,417 +96,311 @@ class RungResult:
         )
 
 
-def _diff(a: jax.Array, b: jax.Array) -> float:
-    return float(
-        jnp.max(jnp.abs(a.astype(jnp.float32) - b.astype(jnp.float32)))
-    )
+def _rung(name, got, want, tol, relative=False) -> RungResult:
+    got = jnp.asarray(got, jnp.float32)
+    want = jnp.asarray(want, jnp.float32)
+    diff = float(jnp.max(jnp.abs(got - want)))
+    if relative:
+        diff /= max(float(jnp.max(jnp.abs(want))), 1e-6)
+    return RungResult(name, diff, tol, bool(jnp.any(jnp.isnan(got))))
 
 
-def run_ladder(
-    n: int = 1024,
-    head_dim: int = 64,
-    batch: int = 1,
-    heads: int = 2,
-    *,
-    interpret: Optional[bool] = None,
-    log: Callable[[str], None] = print,
+def _qkv(s: Sizes, dtype, seed=42, n_q=None):
+    kq, kk, kv = jax.random.split(jax.random.PRNGKey(seed), 3)
+    n_q = s.seq if n_q is None else n_q
+
+    def u(key, h, n):
+        shape = (s.batch, h, n, s.head_dim)
+        return jax.random.uniform(key, shape, jnp.float32, -1, 1).astype(dtype)
+
+    return u(kq, s.q_heads, n_q), u(kk, s.kv_heads, s.seq), u(kv, s.kv_heads, s.seq)
+
+
+def _rep(x, s: Sizes):
+    return jnp.repeat(x, s.q_heads // s.kv_heads, axis=1)
+
+
+def _out_and_grads(fn, args, with_slopes, cotangent):
+    """Output and the VJP of ``cotangent`` (q, k, v[, slopes]) in one
+    compiled program."""
+    n = 4 if with_slopes else 3
+
+    @jax.jit
+    def run(args, cotangent):
+        out, vjp = jax.vjp(lambda *x: fn(*x, *args[n:]), *args[:n])
+        cot = jax.tree_util.tree_map(lambda c, o: c.astype(o.dtype),
+                                     cotangent, out)
+        return out, vjp(cot)
+
+    return run(tuple(args), cotangent)
+
+
+def _compare_grad(
+    name: str, s: Sizes, dtype, kernel_kw: dict, ref_kw: dict, *,
+    n_q=None, with_slopes=False, with_lse=False,
 ) -> List[RungResult]:
-    """Execute the full verification ladder; returns per-rung results."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    key = jax.random.PRNGKey(42)  # seed parity with main.mm:25
-    shape = (batch, heads, n, head_dim)
-    q, k, v = make_qkv(key, shape)
-    results: List[RungResult] = []
-
-    def rung(name, got, want, tol):
-        r = RungResult(name, _diff(got, want), tol, bool(jnp.any(jnp.isnan(got))))
-        results.append(r)
-        log(r.line())
-        return got
-
-    oracle = attention_reference(q, k, v)
-
-    # Rung 1: naive vs oracle (main.mm:232-242).
-    nv = naive_attention(q, k, v, interpret=interpret)
-    rung("naive vs oracle (fp32)", nv, oracle, TOL_FP32)
-
-    # Rung 2: V1 vs naive — differential, transitivity through rung 1
-    # (main.mm:245-256).
-    v1 = flash_attention_v1(q, k, v, interpret=interpret)
-    rung("flash_v1 vs naive (fp32)", v1, nv, TOL_FP32)
-
-    # Rung 3: V2 vs naive + NaN check (main.mm:277-295).
-    v2 = flash_attention_v2(q, k, v, interpret=interpret)
-    rung("flash_v2 vs naive (fp32)", v2, nv, TOL_FP32)
-
-    # Rung 4: V3 parity — fp16 inputs, fp32 softmax stats, at the
-    # reference's distinct half-precision tolerance 5e-3 (main.mm:375,
-    # kernel at kernels.metal:173-455).  fp16's 10 mantissa bits clear
-    # 5e-3; bf16's 7 bits need the looser 1e-2 rung below.
-    q16, k16, v16 = (x.astype(jnp.float16) for x in (q, k, v))
-    v3 = flash_attention_mxu(q16, k16, v16, interpret=interpret)
-    rung("flash_mxu fp16 vs naive (V3 parity)", v3, nv, TOL_V3)
-
-    # Rung 5: MXU bf16 vs naive (V4 analog, main.mm:443-455).
-    qh, kh, vh = (x.astype(jnp.bfloat16) for x in (q, k, v))
-    mx = flash_attention_mxu(qh, kh, vh, interpret=interpret)
-    rung("flash_mxu bf16 vs naive", mx, nv, TOL_HALF)
-
-    # Rung 5: causal — MXU(is_causal) vs causal oracle (main.mm:458-594).
-    oracle_c = attention_reference(q, k, v, causal=True)
-    mxc = flash_attention_mxu(qh, kh, vh, causal=True, interpret=interpret)
-    rung("flash_mxu bf16 causal vs causal oracle", mxc, oracle_c, TOL_HALF)
-
-    # Rung 6: backward vs oracle gradient (main.mm:1087-1195); the FA-2
-    # decomposition is deterministic so fp32 is held to 1e-3, far tighter
-    # than the reference's atomic-limited 1e-1.
-    do = jax.random.normal(jax.random.PRNGKey(7), shape, jnp.float32) * 0.1
-    o_f, lse_lanes = flash_attention_fwd(
-        q, k, v, causal=True, save_lse=True, interpret=interpret
-    )
-    dq, dk, dv = flash_attention_bwd(
-        q, k, v, o_f, do, lse_lanes, causal=True, interpret=interpret
-    )
-    dq_r, dk_r, dv_r = attention_reference_bwd(q, k, v, do, causal=True)
-    rung("backward dQ vs oracle (fp32, causal)", dq, dq_r, TOL_FP32)
-    rung("backward dK vs oracle (fp32, causal)", dk, dk_r, TOL_FP32)
-    rung("backward dV vs oracle (fp32, causal)", dv, dv_r, TOL_FP32)
-
-    # Rung 7: half-precision backward at the reference tolerance, with the
-    # 0.01 downscale fixture (main.mm:951-954).
-    doh = (do * 0.1).astype(jnp.bfloat16)
-    oh, lse_h = flash_attention_fwd(
-        qh, kh, vh, causal=True, save_lse=True, interpret=interpret
-    )
-    dqh, dkh, dvh = flash_attention_bwd(
-        qh, kh, vh, oh, doh, lse_h, causal=True, interpret=interpret
-    )
-    dq_rh, dk_rh, dv_rh = attention_reference_bwd(qh, kh, vh, doh, causal=True)
-    rung("backward dQ vs oracle (bf16, causal)", dqh, dq_rh, TOL_BWD)
-    rung("backward dK vs oracle (bf16, causal)", dkh, dk_rh, TOL_BWD)
-    rung("backward dV vs oracle (bf16, causal)", dvh, dv_rh, TOL_BWD)
-
-    # Rung 7b (round 4): the fused triangular static-unroll backward
-    # (kernels/flash_tri.py) against the same bf16 oracle gradient —
-    # the same (dQ, dK, dV) from ONE visible-area kernel instead of the
-    # two-kernel split.
-    from ..kernels.flash_tri import flash_attention_bwd_tri
-
-    dqt, dkt, dvt = flash_attention_bwd_tri(
-        qh, kh, vh, oh, doh, lse_h, interpret=interpret
-    )
-    rung("tri fused backward dQ vs oracle (bf16)", dqt, dq_rh, TOL_BWD)
-    rung("tri fused backward dK,dV vs oracle (bf16)",
-         jnp.stack([dkt, dvt]), jnp.stack([dk_rh, dv_rh]), TOL_BWD)
-
-    # Rung 7c (round 5): the transposed-output modes — wide-output PV /
-    # gradient matmuls with one XLA transpose outside (the flagship
-    # winners; kernels/flash_tri.py pv_transposed).  Explicit rungs so
-    # Mosaic-lowering coverage does not depend on the routing heuristic.
-    from ..kernels.flash_tri import flash_attention_tri
-
-    opv, lse_pv = flash_attention_tri(
-        qh, kh, vh, save_lse=True, pv_transposed=True, block_q=512,
-        block_k=512, interpret=interpret,
-    )
-    rung("tri pvt forward vs causal oracle (bf16)", opv, oracle_c, TOL_HALF)
-    dqp, dkp, dvp = flash_attention_bwd_tri(
-        qh, kh, vh, oh, doh, lse_h, pv_transposed=True, block_q=512,
-        block_k=512, interpret=interpret,
-    )
-    rung("tri pvt backward dQ vs oracle (bf16)", dqp, dq_rh, TOL_BWD)
-    rung("tri pvt backward dK,dV vs oracle (bf16)",
-         jnp.stack([dkp, dvp]), jnp.stack([dk_rh, dv_rh]), TOL_BWD)
-
-    # Rung 8: quantized-KV forward (BASELINE.json config 4).  8-bit KV
-    # error dominates: verified against the bf16 rung's own output at a
-    # 3e-2 tolerance (the int8 analog of the reference's widening ladder,
-    # main.mm:452).
-    from ..kernels import flash_attention_quant, quantize_kv
-
-    for qdtype, qname, qtol in (
-        (jnp.int8, "int8", TOL_QUANT_INT8),
-        (jnp.float8_e4m3fn, "fp8", TOL_QUANT_FP8),
-    ):
-        qkv_q = quantize_kv(kh, vh, dtype=qdtype)
-        oq = flash_attention_quant(qh, qkv_q, causal=True, interpret=interpret)
-        rung(f"flash_quant {qname}-KV causal vs causal oracle", oq, oracle_c, qtol)
-
-    # Rung 9: native GQA (KV heads folded in the kernel index maps, no
-    # materialized broadcast) vs broadcast oracle.
-    from ..ops.attention import flash_attention
-
-    kg, vg = kh[:, :1], vh[:, :1]  # MQA: 1 KV head under `heads` Q heads
-    og = flash_attention(qh, kg, vg, causal=True, interpret=interpret)
-    oracle_g = attention_reference(
-        q,
-        jnp.broadcast_to(kg, k.shape).astype(jnp.float32),
-        jnp.broadcast_to(vg, v.shape).astype(jnp.float32),
-        causal=True,
-    )
-    rung("flash MQA (native head-fold) vs oracle", og, oracle_g, TOL_HALF)
-
-    # Rung 10: sliding-window attention vs windowed oracle.
-    w = max(n // 4, 128)
-    ow = flash_attention_fwd(
-        qh, kh, vh, causal=True, window=w, interpret=interpret
-    )
-    oracle_w = attention_reference(q, k, v, causal=True, window=w)
-    rung(f"flash sliding-window (W={w}) vs oracle", ow, oracle_w, TOL_HALF)
-
-    # Rung 11: arbitrary block-sparse mask (skip-list grid) vs a masked
-    # oracle — validates the mask compiler's Mosaic path end-to-end.
-    from ..kernels import BlockMask, block_sparse_attention
-
-    def _mask_fn(r, c):
-        return (c <= r) & (((r - c) < n // 4) | ((c % (3 * n // 8)) < n // 8))
-
-    bm = BlockMask(_mask_fn, n, n, 128, 128)
-    osp = block_sparse_attention(qh, kh, vh, bm, interpret=interpret)
-    sbs = jnp.einsum(
-        "bhqd,bhkd->bhqk",
-        q.astype(jnp.float32),
-        k.astype(jnp.float32),
-        precision=jax.lax.Precision.HIGHEST,
-    ) * (head_dim**-0.5)
-    rr, cc = jnp.arange(n)[:, None], jnp.arange(n)[None, :]
-    sbs = jnp.where(_mask_fn(rr, cc), sbs, -jnp.inf)
-    mm = jnp.max(sbs, -1, keepdims=True)
-    mm = jnp.where(jnp.isneginf(mm), 0.0, mm)
-    pp = jnp.exp(sbs - mm)
-    ll = jnp.sum(pp, -1, keepdims=True)
-    oracle_sp = jnp.einsum(
-        "bhqk,bhkd->bhqd",
-        pp / jnp.where(ll == 0, 1.0, ll),
-        v.astype(jnp.float32),
-        precision=jax.lax.Precision.HIGHEST,
-    )
-    rung(
-        f"flash block-sparse mask (density {bm.density:.2f}) vs oracle",
-        osp,
-        oracle_sp,
-        TOL_HALF,
-    )
-
-    # Rung 12: paged KV (vLLM-style page-table indirection) — physical
-    # pages deliberately permuted so the scalar-prefetch index-map
-    # translation is actually exercised; masking is in logical position
-    # space so output must match the causal oracle regardless of
-    # placement.  Covers full prefill (lengths=0) and a decode chunk
-    # (lengths=n-128, last block of rows).
-    from ..kernels import flash_attention_paged
-
-    ps = 128
-    pages_per = n // ps
-    perm = (
-        jax.random.permutation(jax.random.PRNGKey(11), batch * pages_per) + 1
-    ).reshape(batch, pages_per)
-    pool_shape = (1 + batch * pages_per, heads, ps, head_dim)
-    pool_k = jnp.zeros(pool_shape, jnp.bfloat16)
-    pool_v = jnp.zeros(pool_shape, jnp.bfloat16)
-    kp = kh.reshape(batch, heads, pages_per, ps, head_dim)
-    vp = vh.reshape(batch, heads, pages_per, ps, head_dim)
-    for b in range(batch):
-        for p in range(pages_per):
-            pool_k = pool_k.at[perm[b, p]].set(kp[b, :, p])
-            pool_v = pool_v.at[perm[b, p]].set(vp[b, :, p])
-    table = jnp.asarray(perm, jnp.int32)
-    op_full = flash_attention_paged(
-        qh, pool_k, pool_v, table,
-        jnp.zeros((batch,), jnp.int32), interpret=interpret,
-    )
-    rung("flash paged-KV prefill vs causal oracle", op_full, oracle_c, TOL_HALF)
-    op_dec = flash_attention_paged(
-        qh[:, :, n - ps:], pool_k, pool_v, table,
-        jnp.full((batch,), n - ps, jnp.int32), interpret=interpret,
-    )
-    rung(
-        "flash paged-KV decode chunk vs causal oracle",
-        op_dec,
-        oracle_c[:, :, n - ps:],
-        TOL_HALF,
-    )
-
-    # Rung 13: tanh logit softcap (Gemma-2 style) vs capped oracle — the
-    # in-kernel transform runs in log2 units, so this checks the rebase.
-    cap = 20.0
-    osc = flash_attention_fwd(
-        qh, kh, vh, causal=True, softcap=cap, interpret=interpret
-    )
-    oracle_sc = attention_reference(q, k, v, causal=True, softcap=cap)
-    rung(f"flash softcap ({cap:g}) causal vs oracle", osc, oracle_sc, TOL_HALF)
-
-    # Rung 14: ALiBi linear position bias vs biased oracle (per-head
-    # slopes; a capability the reference scoped out,
-    # project_narrative.md:50-53).
+    """Forward and gradients of the Pallas op against the oracle."""
+    q, k, v = _qkv(s, dtype, n_q=n_q)
+    w = jax.random.uniform(jax.random.PRNGKey(7), q.shape, jnp.float32, -1, 1)
+    wl = jax.random.uniform(jax.random.PRNGKey(8), q.shape[:3], jnp.float32)
     slopes = jnp.asarray(
-        [2.0 ** -(8.0 * (i + 1) / heads) for i in range(heads)], jnp.float32
+        [2.0 ** -(8 * (i + 1) / s.q_heads) for i in range(s.q_heads)],
+        jnp.float32,
     )
-    oal = flash_attention_fwd(
-        qh, kh, vh, causal=True, alibi_slopes=slopes, interpret=interpret
-    )
-    oracle_al = attention_reference(q, k, v, causal=True, alibi_slopes=slopes)
-    rung("flash ALiBi causal vs oracle", oal, oracle_al, TOL_HALF)
+    kernel_kw = dict(kernel_kw)
+    ref_kw = dict(ref_kw)
 
-    # Rung 15: softcap+ALiBi composed through the serving cache kernels —
-    # the int8-KV kernel (transform between dequant-scale and masking) and
-    # the paged kernel (transform through the page-table indirection,
-    # distances in logical position space).  Oracle is the dense fp32
-    # reference with the same transforms.
-    oracle_tc = attention_reference(
-        q, k, v, causal=True, softcap=cap, alibi_slopes=slopes
-    )
-    qkv_i8 = quantize_kv(kh, vh, dtype=jnp.int8)
-    otq = flash_attention_quant(
-        qh, qkv_i8, causal=True, softcap=cap, alibi_slopes=slopes,
-        interpret=interpret,
-    )
-    rung(
-        "flash_quant int8-KV softcap+ALiBi vs oracle",
-        otq, oracle_tc, TOL_QUANT_INT8,
-    )
-    otp = flash_attention_paged(
-        qh, pool_k, pool_v, table, jnp.zeros((batch,), jnp.int32),
-        softcap=cap, alibi_slopes=slopes, interpret=interpret,
-    )
-    rung("flash paged-KV softcap+ALiBi vs oracle", otp, oracle_tc, TOL_HALF)
-
-    # Rung 16: in-kernel softcap backward — the dS path chains through
-    # the tanh-cap derivative inside the FA-2 kernels (the dS-transform
-    # site of the reference backward, kernels.metal:1160-1169); no O(N^2)
-    # score tensor is materialized (round-3's oracle-VJP fallback is gone).
-    def loss_sc(q_, k_, v_):
-        return jnp.sum(
-            flash_attention(
-                q_, k_, v_, causal=True, softcap=cap, interpret=interpret
-            )
-            * do
+    def kern(q, k, v, sl):
+        extra = dict(alibi_slopes=sl) if with_slopes else {}
+        return flash_attention(
+            q, k, v, impl="pallas", save_lse=with_lse, **kernel_kw, **extra
         )
 
-    g_sc = jax.grad(loss_sc, argnums=(0, 1, 2))(q, k, v)
-    g_sc_r = jax.grad(
-        lambda q_, k_, v_: jnp.sum(
-            attention_reference(q_, k_, v_, causal=True, softcap=cap) * do
-        ),
-        argnums=(0, 1, 2),
-    )(q, k, v)
-    rung(
-        "softcap backward (dQ,dK,dV) vs oracle",
-        jnp.stack(g_sc),
-        jnp.stack(g_sc_r),
-        TOL_FP32,
-    )
+    def ref(q, k, v, sl):
+        extra = dict(alibi_slopes=sl) if with_slopes else {}
+        fn = attention_reference_with_lse if with_lse else attention_reference
+        return fn(q, _rep(k, s), _rep(v, s), **ref_kw, **extra)
 
-    # Rung 17: in-kernel ALiBi backward including d/d(slopes) (a masked
-    # in-kernel reduce of dS * distance); slope grads compared relatively
-    # (they are O(N^2) sums).
-    def loss_al(q_, k_, v_, s_):
-        return jnp.sum(
-            flash_attention(
-                q_, k_, v_, causal=True, alibi_slopes=s_, interpret=interpret
-            )
-            * do
-        )
+    out_k, g_k = _out_and_grads(kern, (q, k, v, slopes), with_slopes,
+                                (w, wl) if with_lse else w)
+    with jax.default_matmul_precision("highest"):
+        out_r, g_r = _out_and_grads(ref, (q, k, v, slopes), with_slopes,
+                                    (w, wl) if with_lse else w)
+    half = dtype != jnp.float32
+    tol_f = TOL_HALF if half else TOL_FP32
+    tol_b = TOL_BWD if half else TOL_FP32
+    o_k, o_r = (out_k[0], out_r[0]) if with_lse else (out_k, out_r)
+    res = [_rung(f"{name} fwd", o_k, o_r, tol_f)]
+    if with_lse:
+        res.append(_rung(f"{name} lse", out_k[1], out_r[1], tol_f))
+    for label, a, b in zip(("dq", "dk", "dv", "dslopes(rel)"), g_k, g_r):
+        rel = label.startswith("dslopes")
+        res.append(_rung(f"{name} {label}", a, b, tol_f if rel else tol_b,
+                         relative=rel))
+    return res
 
-    g_al = jax.grad(loss_al, argnums=(0, 1, 2, 3))(q, k, v, slopes)
-    g_al_r = jax.grad(
-        lambda q_, k_, v_, s_: jnp.sum(
-            attention_reference(q_, k_, v_, causal=True, alibi_slopes=s_)
-            * do
-        ),
-        argnums=(0, 1, 2, 3),
-    )(q, k, v, slopes)
-    rung(
-        "ALiBi backward (dQ,dK,dV) vs oracle",
-        jnp.stack(g_al[:3]),
-        jnp.stack(g_al_r[:3]),
-        TOL_FP32,
-    )
-    rung(
-        "ALiBi backward d_slopes vs oracle (relative)",
-        g_al[3] / (jnp.abs(g_al_r[3]) + 1.0),
-        g_al_r[3] / (jnp.abs(g_al_r[3]) + 1.0),
-        TOL_FP32,
-    )
 
-    # Rung 18: native-GQA backward (row-fold; K/V read once per KV head,
-    # no jnp.repeat broadcast) vs the broadcast oracle gradient.
-    kg2, vg2 = k[:, :1], v[:, :1]
+def _fwd_bwd(dtype, causal):
+    def check(s: Sizes):
+        name = f"fwd+bwd {jnp.dtype(dtype).name} causal={causal}"
+        return _compare_grad(name, s, dtype, dict(causal=causal),
+                             dict(causal=causal))
+    return check
 
-    def loss_gqa(q_, k_, v_):
-        return jnp.sum(
-            flash_attention(q_, k_, v_, causal=True, interpret=interpret)
-            * do
-        )
 
-    g_gq = jax.grad(loss_gqa, argnums=(0, 1, 2))(q, kg2, vg2)
-    g_gq_r = jax.grad(
-        lambda q_, k_, v_: jnp.sum(
-            attention_reference(
-                q_,
-                jnp.broadcast_to(k_, q_.shape),
-                jnp.broadcast_to(v_, q_.shape),
-                causal=True,
-            )
-            * do
-        ),
-        argnums=(0, 1, 2),
-    )(q, kg2, vg2)
-    rung("GQA-fold backward dQ vs oracle", g_gq[0], g_gq_r[0], TOL_FP32)
-    rung(
-        "GQA-fold backward dK,dV (group-summed in-kernel) vs oracle",
-        jnp.stack(g_gq[1:]),
-        jnp.stack(g_gq_r[1:]),
-        TOL_FP32,
-    )
+def _feature(name, kw, **flags):
+    def check(s: Sizes):
+        kw2 = dict(kw)
+        if kw2.get("window") == "W":
+            kw2["window"] = s.window
+        if "segment_ids" in kw2:
+            n = s.seq
+            seg = jnp.repeat(jnp.arange(4, dtype=jnp.int32), n // 4)[None, :]
+            seg = jnp.broadcast_to(seg, (s.batch, n))
+            kw2["segment_ids"] = SegmentIds(seg, seg)
+        return _compare_grad(f"{name} bf16", s, jnp.bfloat16, kw2, kw2,
+                             **flags)
+    return check
 
-    # Rungs 24-25: in-kernel attention dropout, forward AND backward.
-    # The keep mask is a stateless coordinate hash shared bit-exactly by
-    # the kernels and the oracle (kernels/_common.py::dropout_keep), so
-    # dropout verifies at full fp32 tolerance — not just statistically.
-    seed = jnp.int32(424242)
-    odr = flash_attention_fwd(
-        q, k, v, causal=True, dropout_rate=0.2, dropout_seed=seed,
-        interpret=interpret,
-    )
-    oracle_dr = attention_reference(
-        q, k, v, causal=True, dropout_rate=0.2, dropout_seed=seed
-    )
-    rung("flash dropout (p=0.2) causal vs oracle", odr, oracle_dr, TOL_FP32)
-    od_f, lse_dr = flash_attention_fwd(
-        q, k, v, causal=True, save_lse=True, dropout_rate=0.2,
-        dropout_seed=seed, interpret=interpret,
-    )
-    dq_d, dk_d, dv_d = flash_attention_bwd(
-        q, k, v, od_f, do, lse_dr, causal=True, dropout_rate=0.2,
-        dropout_seed=seed, interpret=interpret,
-    )
-    dq_dr, dk_dr, dv_dr = attention_reference_bwd(
-        q, k, v, do, causal=True, dropout_rate=0.2, dropout_seed=seed
-    )
-    rung(
-        "flash dropout backward (dQ,dK,dV) vs oracle",
-        jnp.stack([dq_d, dk_d, dv_d]),
-        jnp.stack([dq_dr, dk_dr, dv_dr]),
-        TOL_FP32,
-    )
 
+def _traced_offsets(s: Sizes) -> List[RungResult]:
+    """Per-batch offsets as traced values: 2 rows of half-length queries
+    against the full KV at different diagonals."""
+    s2 = dataclasses.replace(s, batch=2)
+    n_q = s.seq // 2
+    q, k, v = _qkv(s2, jnp.bfloat16, n_q=n_q)
+    offs = jnp.asarray([s.seq - n_q, s.seq // 4], jnp.int32)
+    w = jax.random.uniform(jax.random.PRNGKey(7), q.shape, jnp.float32, -1, 1)
+
+    def kern(q, k, v, o):
+        return flash_attention(q, k, v, o, causal=True, impl="pallas")
+
+    def ref(q, k, v, o):
+        return attention_reference(q, _rep(k, s2), _rep(v, s2), causal=True,
+                                   q_offset=o[:, None, None, None])
+
+    o_k, g_k = _out_and_grads(kern, (q, k, v, offs), False, w)
+    with jax.default_matmul_precision("highest"):
+        o_r, g_r = _out_and_grads(ref, (q, k, v, offs), False, w)
+    res = [_rung("traced per-batch q_offset fwd bf16", o_k, o_r, TOL_HALF)]
+    for label, a, b in zip(("dq", "dk", "dv"), g_k, g_r):
+        res.append(_rung(f"traced per-batch q_offset {label}", a, b, TOL_BWD))
+    return res
+
+
+def _dropout(s: Sizes) -> List[RungResult]:
+    """The in-kernel dropout mask equals the oracle's bit for bit.
+
+    With V = I (KV length = head dim) the output row is the dropped
+    probability row itself, so the kernel's zero pattern IS its mask.
+    """
+    rate, seed = 0.2, jnp.int32(1234)
+    d = s.head_dim
+    q = jax.random.uniform(jax.random.PRNGKey(3), (1, s.q_heads, s.seq, d),
+                           jnp.float32, -1, 1)
+    k = jax.random.uniform(jax.random.PRNGKey(4), (1, s.q_heads, d, d),
+                           jnp.float32, -1, 1)
+    eye = jnp.broadcast_to(jnp.eye(d, dtype=jnp.float32), k.shape)
+    o = jax.jit(lambda q, k, v: flash_attention(
+        q, k, v, dropout_rate=rate, dropout_seed=seed, impl="pallas"))(
+            q, k, eye)
+    sv = pack_dropout_seed(seed)
+    keep = dropout_keep(
+        sv[0], jnp.arange(s.q_heads).reshape(1, -1, 1, 1),
+        jnp.arange(s.seq).reshape(1, 1, -1, 1),
+        jnp.arange(d).reshape(1, 1, 1, -1), rate,
+    )
+    mismatches = jnp.sum((o != 0) != (keep != 0))
+    res = [RungResult("dropout mask bit-identical (mismatches)",
+                      float(mismatches), 1.0, False)]
+    res += _feature("dropout", dict(causal=True, dropout_rate=rate,
+                                    dropout_seed=seed))(s)
+    return res
+
+
+def _decode_inputs(s: Sizes):
+    b, n = s.decode_batch, s.cache
+    key = jax.random.PRNGKey(11)
+    kq, kk, kv = jax.random.split(key, 3)
+    q = jax.random.uniform(kq, (b, s.q_heads, 1, s.head_dim), jnp.float32,
+                           -1, 1).astype(jnp.bfloat16)
+    k = jax.random.uniform(kk, (b, s.kv_heads, n, s.head_dim), jnp.float32,
+                           -1, 1).astype(jnp.bfloat16)
+    v = jax.random.uniform(kv, (b, s.kv_heads, n, s.head_dim), jnp.float32,
+                           -1, 1).astype(jnp.bfloat16)
+    # Ragged lengths: the token being decoded sits at position lengths[b].
+    lengths = jnp.asarray(
+        [n - 1 - (i * 997) % (n // 2) for i in range(b)], jnp.int32
+    )
+    return q, k, v, lengths
+
+
+def _decode_ref(s, q, k, v, lengths):
+    with jax.default_matmul_precision("highest"):
+        return jax.jit(lambda q, k, v, o: attention_reference(
+            q, _rep(k, s), _rep(v, s), causal=True,
+            q_offset=o[:, None, None, None]))(q, k, v, lengths)
+
+
+def _to_pool(x, page):
+    """[B, H, N, ...] -> a page pool [B*N/page, H, page, ...] whose page
+    table is the identity."""
+    b, h, n = x.shape[:3]
+    tail = x.shape[3:]
+    return (x.reshape(b, h, n // page, page, *tail).swapaxes(1, 2)
+            .reshape(b * n // page, h, page, *tail))
+
+
+def _decode(kind: str):
+    def check(s: Sizes) -> List[RungResult]:
+        q, k, v, lengths = _decode_inputs(s)
+        ref = _decode_ref(s, q, k, v, lengths)
+        group = s.q_heads // s.kv_heads
+        fold = fold_gqa_rows(q, s.kv_heads)
+        table = jnp.arange(s.decode_batch * s.cache // s.page, dtype=jnp.int32)
+        table = table.reshape(s.decode_batch, -1)
+        tol = TOL_HALF
+        if kind == "dense bf16":
+            o = jax.jit(gqa_decode_attention)(q, k, v, lengths)
+        elif kind in ("int8", "float8_e4m3fn"):
+            qkv = quantize_kv(k, v, getattr(jnp, kind))
+            o = jax.jit(lambda f, c, l: flash_attention_quant(
+                f, c, l, causal=True, pos_div=group))(fold, qkv, lengths)
+            o = unfold_gqa_rows(o, s.q_heads, 1)
+            tol = TOL_QUANT[kind]
+        elif kind == "paged bf16":
+            o = jax.jit(lambda f, pk, pv, t, l: flash_attention_paged(
+                f, pk, pv, t, l, pos_div=group))(
+                    fold, _to_pool(k, s.page), _to_pool(v, s.page), table,
+                    lengths)
+            o = unfold_gqa_rows(o, s.q_heads, 1)
+        elif kind == "paged int8":
+            qkv = quantize_kv(k, v, jnp.int8)
+            o = jax.jit(lambda f, a, b_, c, d, t, l: flash_attention_paged_quant(
+                f, a, b_, c, d, t, l, pos_div=group))(
+                    fold, _to_pool(qkv.k_q, s.page),
+                    _to_pool(qkv.v_q, s.page), _to_pool(qkv.k_scale, s.page),
+                    _to_pool(qkv.v_scale, s.page), table, lengths)
+            o = unfold_gqa_rows(o, s.q_heads, 1)
+            tol = TOL_QUANT["int8"]
+        else:
+            raise ValueError(kind)
+        return [_rung(f"decode {kind} (T=1, GQA fold {group}, cache "
+                      f"{s.cache})", o, ref, tol)]
+    return check
+
+
+def _decode_rolling(s: Sizes) -> List[RungResult]:
+    """Rolling (wrapped) cache with sinks: position-space masking over a
+    cache of ``cache // 4`` slots that has seen ``cache`` positions."""
+    cap, sinks = s.cache // 4, 4
+    window = cap - sinks - 64
+    q, k_hist, v_hist, _ = _decode_inputs(s)
+    cur = s.cache
+    lengths = jnp.full((s.decode_batch,), cur - 1, jnp.int32)
+    # Each slot holds the latest position that maps to it.
+    slots = rolling_slots(jnp.arange(cur), cap, sinks)
+    pos = jnp.full((cap,), -1, jnp.int32).at[slots].max(jnp.arange(cur))
+    kc = k_hist[:, :, jnp.maximum(pos, 0)]
+    vc = v_hist[:, :, jnp.maximum(pos, 0)]
+    pos = jnp.broadcast_to(pos, (s.decode_batch, cap))
+    o = jax.jit(lambda q, k, v, l, p: flash_attention(
+        q, k, v, l, kv_positions=p, causal=True, window=window,
+        sinks=sinks))(q, kc, vc, lengths, pos)
+    with jax.default_matmul_precision("highest"):
+        ref = jax.jit(lambda q, k, v, o: attention_reference(
+            q, _rep(k, s), _rep(v, s), causal=True, window=window,
+            sinks=sinks, q_offset=o[:, None, None, None]))(
+                q, k_hist, v_hist, lengths)
+    return [_rung(f"decode rolling bf16 (capacity {cap}, sinks {sinks})",
+                  o, ref, TOL_HALF)]
+
+
+CHECKS: Dict[str, Callable[[Sizes], List[RungResult]]] = {
+    "fwd_bwd_bf16_causal": _fwd_bwd(jnp.bfloat16, True),
+    "fwd_bwd_bf16_full": _fwd_bwd(jnp.bfloat16, False),
+    "fwd_bwd_fp32_causal": _fwd_bwd(jnp.float32, True),
+    "fwd_bwd_fp32_full": _fwd_bwd(jnp.float32, False),
+    "window_sinks": _feature("window+sinks",
+                             dict(causal=True, window="W", sinks=4)),
+    "softcap": _feature("softcap", dict(causal=True, softcap=30.0)),
+    "alibi": _feature("alibi", dict(causal=True), with_slopes=True),
+    "segment_ids": _feature("segment ids",
+                            dict(causal=True, segment_ids=True)),
+    "dropout": _dropout,
+    "save_lse": _feature("save_lse", dict(causal=True), with_lse=True),
+    "traced_offset": _traced_offsets,
+    "decode_dense": _decode("dense bf16"),
+    "decode_int8": _decode("int8"),
+    "decode_fp8": _decode("float8_e4m3fn"),
+    "decode_paged": _decode("paged bf16"),
+    "decode_paged_int8": _decode("paged int8"),
+    "decode_rolling": _decode_rolling,
+}
+
+
+def run_kernel_checks(
+    sizes: Sizes = SMALL, log: Callable[[str], None] = print
+) -> List[RungResult]:
+    """Run every check at ``sizes``; logs one line per comparison."""
+    log(DOT_PRECISION)
+    results: List[RungResult] = []
+    for name, check in CHECKS.items():
+        for r in check(sizes):
+            log(r.line())
+            results.append(r)
     return results
 
 
 def main() -> int:
-    from ..utils.comp_cache import enable_compilation_cache
-
-    enable_compilation_cache()
-
-    print("== flash_attention_metal_tpu verification ladder ==")
-    print(f"backend: {jax.default_backend()}")
-    results = run_ladder()
-    ok = all(r.passed for r in results)
-    print(f"== {'ALL PASS' if ok else 'FAILURES PRESENT'} "
-          f"({sum(r.passed for r in results)}/{len(results)}) ==")
-    return 0 if ok else 1
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--full", action="store_true",
+                    help="Llama-3.1-8B widths (GPU)")
+    args = ap.parse_args()
+    results = run_kernel_checks(FULL if args.full else SMALL)
+    failed = [r for r in results if not r.passed]
+    print(f"{len(results) - len(failed)}/{len(results)} passed")
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

@@ -1,22 +1,7 @@
-"""The Pallas kernel ladder (reference parity: K1-K6, SURVEY.md §2)."""
+"""Pallas attention kernels on the Triton route (SURVEY.md §2)."""
 
-from .naive import naive_attention
-from .flash_v1 import flash_attention_v1
-from .flash_v2 import flash_attention_v2
-from .flash_mxu import flash_attention_mxu
 from .flash_fwd import flash_attention_fwd
-from .flash_tri import flash_attention_bwd_tri, flash_attention_tri
-from .flash_bwd import (
-    flash_attention_bwd,
-    flash_attention_bwd_auto,
-    flash_attention_bwd_fused,
-)
-from .flash_mask import (
-    BlockMask,
-    block_sparse_attention,
-    flash_attention_block_sparse,
-    flash_attention_block_sparse_fwd,
-)
+from .flash_bwd import flash_attention_bwd
 from .paged import flash_attention_paged, flash_attention_paged_quant
 from .quant import (
     QuantizedKV,
@@ -26,20 +11,8 @@ from .quant import (
 )
 
 __all__ = [
-    "naive_attention",
-    "flash_attention_v1",
-    "flash_attention_v2",
-    "flash_attention_mxu",
     "flash_attention_fwd",
-    "flash_attention_bwd_tri",
-    "flash_attention_tri",
     "flash_attention_bwd",
-    "flash_attention_bwd_auto",
-    "flash_attention_bwd_fused",
-    "BlockMask",
-    "block_sparse_attention",
-    "flash_attention_block_sparse",
-    "flash_attention_block_sparse_fwd",
     "flash_attention_paged",
     "flash_attention_paged_quant",
     "QuantizedKV",

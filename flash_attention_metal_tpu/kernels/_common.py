@@ -1,4 +1,6 @@
-"""Shared kernel helpers."""
+"""Shared kernel helpers: the route decision and the dropout hash."""
+
+import os
 
 import numpy as np
 
@@ -18,16 +20,40 @@ _MIX_C = _i32(0x7FEB352D)
 _MIX_D = _i32(0x846CA68B)
 _MASK31 = np.int32(0x7FFFFFFF)
 
+# The one switch that lets Pallas kernels run without a GPU.
+INTERPRET_ENV = "FLASH_ATTENTION_INTERPRET"
+
+
+def pallas_interpret() -> bool:
+    """Route decision for every ``pallas_call`` in the package.
+
+    On the GPU the kernels compile through Triton and never interpret.
+    Elsewhere they run in the Pallas interpreter only when the caller
+    asked for it by setting ``FLASH_ATTENTION_INTERPRET=1`` (the test
+    suite and the CPU recipe do); otherwise this raises, so a CPU run
+    never passes silently through the interpreter.
+    """
+    backend = jax.default_backend()
+    if backend == "gpu":
+        return False
+    if os.environ.get(INTERPRET_ENV) == "1":
+        return True
+    raise RuntimeError(
+        f"the Pallas attention kernels compile only for the GPU, and the "
+        f"backend is {backend!r}; set {INTERPRET_ENV}=1 to run them in "
+        f"interpret mode, or pass impl='xla'"
+    )
+
 
 def _mix32(x: jax.Array) -> jax.Array:
     """'lowbias32'-style avalanche finalizer on int32 (wraparound mul).
 
     int32 two's-complement multiply/xor/shift produce the same bits as
-    the canonical uint32 formulation, and every op here lowers on the
-    TPU VPU, inside Pallas kernels, and in interpret mode identically —
-    which is the whole point: the dropout mask must be reproducible
-    bit-for-bit across the forward kernel, both backward kernels, and
-    the pure-jnp oracle, regardless of block sizes.
+    the canonical uint32 formulation, and every op here lowers through
+    Triton, in interpret mode and in XLA identically — which is the
+    whole point: the dropout mask must be reproducible bit-for-bit
+    across the forward kernel, both backward kernels, and the pure-jnp
+    oracle, regardless of block sizes.
     """
     x = x ^ jax.lax.shift_right_logical(x, 16)
     x = x * _MIX_C
@@ -39,7 +65,7 @@ def _mix32(x: jax.Array) -> jax.Array:
 
 def pack_dropout_seed(seed, offsets=None) -> jax.Array:
     """Pack the dropout seed + global-coordinate offsets into the int32
-    scalar-prefetch vector the kernels consume.
+    vector the kernels consume.
 
     Layout: ``[seed, row_off, col_off, batch_off, head_off]``.  The
     offsets translate the kernels' shard-local grid coordinates into
@@ -85,14 +111,14 @@ def dropout_keep(
     A stateless Philox-style construction: the mask at score position
     ``(bh, row, col)`` is a pure function of the int32 seed and the
     *absolute* coordinates, so the forward and the two FA-2 backward
-    kernels regenerate identical masks from nothing but their grid
+    kernels regenerate identical masks from nothing but their program
     indices — no mask tensor is ever materialized in HBM, and the
     kernels' block sizes don't have to agree (the reference's backward
     has no dropout at all; this mirrors FlashAttention-2's in-kernel
-    dropout capability on TPU terms).
+    dropout).
 
-    All arguments broadcast: kernels pass scalar ``bh`` with (bq, 1) /
-    (1, bk) iotas; the oracle passes (B, H, 1, 1) / (1, 1, N, 1) /
+    All arguments broadcast: kernels pass scalar ``bh`` with [bq, 1] /
+    [1, bk] index vectors; the oracle passes (B, H, 1, 1) / (1, 1, N, 1) /
     (1, 1, 1, N) arrays.  ``rate`` is trace-time; keep probability is
     ``1 - rate`` on a 31-bit uniform lattice.
     """
@@ -107,69 +133,3 @@ def dropout_keep(
     h = _mix32(h + cols * _MIX_A)
     keep = (h & _MASK31) >= threshold
     return jnp.where(keep, inv_keep, np.float32(0.0))
-
-
-def mxu_precision(dtype):
-    """Max-precision MXU policy (golden-anchor kernels: naive, flash_v1).
-
-    fp32 operands use the full multi-pass MXU decomposition (HIGHEST,
-    ~1e-8 error) so the baseline rungs anchor the ladder at maximum
-    fidelity to the fp32 oracle (``main.mm:239``); half/quantized types
-    are single-pass on the MXU regardless.
-    """
-    return (
-        jax.lax.Precision.HIGHEST
-        if dtype == jnp.float32
-        else jax.lax.Precision.DEFAULT
-    )
-
-
-def mxu_precision_fast(dtype):
-    """Tuned-kernel MXU precision arg: DEFAULT everywhere.
-
-    fp32 inputs are handled by ``mxu_dot_general``'s explicit bf16x3
-    decomposition instead of a precision flag (Mosaic lowers only
-    DEFAULT and HIGHEST; ``Precision.HIGH`` raises NotImplementedError
-    inside Pallas kernels).
-    """
-    return jax.lax.Precision.DEFAULT
-
-
-def mxu_dot_general(a, b, dimension_numbers, out_hint_dtype=None):
-    """MXU matmul for the tuned kernels (flash_v2/flash_fwd/flash_bwd).
-
-    bf16/fp16/int8 operands: one single-pass MXU contraction with fp32
-    accumulation.  fp32 operands: an explicit **bf16x3** decomposition —
-    split each operand into ``hi = bf16(x)`` and ``lo = bf16(x - hi)``
-    and sum the three significant cross products (``lo.lo`` is ~2^-16
-    relative and dropped):
-
-        a.b ~= hi_a.hi_b + hi_a.lo_b + lo_a.hi_b
-
-    Error ~1e-7 absolute on the ladder fixture — four orders inside the
-    reference's 1e-3 fp32 tolerance (``main.mm:292``) — at ~half the
-    cost of the 6-pass HIGHEST lowering (3 single-pass matmuls).  This
-    is the fp32 analog of the reference V2's speed-within-tolerance
-    trade (its fp16 rungs concede 5e-3/1e-2, ``main.mm:375,452``).
-    Mosaic has no built-in middle precision (``Precision.HIGH`` is
-    unsupported in kernels), so the decomposition is spelled out.
-    """
-    if a.dtype == jnp.float32 and b.dtype == jnp.float32:
-        a_hi = a.astype(jnp.bfloat16)
-        b_hi = b.astype(jnp.bfloat16)
-        a_lo = (a - a_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-        b_lo = (b - b_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-
-        def d(x, y):
-            return jax.lax.dot_general(
-                x, y, dimension_numbers,
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.DEFAULT,
-            )
-
-        return d(a_hi, b_hi) + d(a_hi, b_lo) + d(a_lo, b_hi)
-    return jax.lax.dot_general(
-        a, b, dimension_numbers,
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.DEFAULT,
-    )

@@ -1,824 +1,274 @@
-"""K6 — flash-attention backward, FA-2 two-kernel decomposition.
+"""FlashAttention-2 backward: a dK/dV kernel and a dQ kernel, Triton route.
 
-The reference's ``flash_attention_backward_kernel`` (``kernels.metal:
-885-1265``) is a single kernel parallelized over Q blocks that accumulates
-dK/dV across threadgroups with global float atomics (``kernels.metal:
-891-903,1216-1247``) and staggers block starts to spread contention
-(``kernels.metal:1012-1016``).  TPUs have no global atomics — and don't
-need them: the idiomatic decomposition (also what FlashAttention-2 does)
-is **two kernels with disjoint write sets**:
+The reference's backward (``kernels.metal:884-1209``) recomputes the
+probabilities from the saved logsumexp (``kernels.metal:1081-1089``) and
+accumulates the gradients.  Here the same recompute runs in two
+deterministic kernels with no atomics:
 
-* ``dKdV`` kernel — grid over KV blocks, sequential reduction over Q
-  blocks; each KV block's dK/dV is owned by exactly one grid cell, so the
-  accumulation lives in fp32 VMEM scratch with zero contention and the
-  result is bitwise deterministic (the reference explicitly documents its
-  float-atomic non-determinism, ``interview_prep_guide.md:89``).
-* ``dQ`` kernel — grid over Q blocks, sequential reduction over KV blocks.
+* **dK/dV**: one program per (KV block, batch, KV head).  It keeps its K/V
+  tile and fp32 dK/dV accumulators in registers and loops over the query
+  heads of its GQA group and, for each, over the query blocks that can
+  see the tile -- so a group's gradients are summed in registers, with no
+  K/V broadcast and no group-sized dK/dV in memory.
+* **dQ**: one program per (query block, batch, query head), looping over
+  the KV blocks of the forward's causal/window range.  With ALiBi it also
+  writes each row's sum of dS * distance, which the wrapper reduces to
+  d/d(slopes).
 
-Both kernels *recompute* S = QK^T per block and reconstruct
-P = exp(S*scale - L) from the saved logsumexp instead of re-running the
-softmax reduction — the same trick as the reference (``kernels.metal:
-1043-1089``) — and share a precomputed ``delta_i = sum(dO * O)`` row
-vector (``kernels.metal:982-990``).  Gradients accumulate in fp32
-(``kernels.metal:912-914,1008``) and are cast to the input dtype on store.
+Both replay the forward's score transforms (softcap, ALiBi), masks and
+dropout hash, and chain dS through ``1 - tanh^2`` for the cap -- no
+O(N^2) tensor is ever materialised.  The lse cotangent folds into the
+per-row ``delta`` (d lse / d s = p).
 """
 
 from __future__ import annotations
 
 import functools
-import math
 from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-from ..config import BlockSizes, NUM_LANES, NUM_SUBLANES, default_scale
-from ._common import dropout_keep, mxu_dot_general, pack_dropout_seed
+from ..config import BlockSizes, default_scale
+from ._common import dropout_keep, pack_dropout_seed, pallas_interpret
+from .flash_fwd import (
+    _LOG2E,
+    _pad_to,
+    _round_up,
+    causal_kv_range,
+    dot_precision,
+    pad_dim,
+)
 
-# Base-2 softmax reconstruction: exp(x) = exp2(x * log2 e), with log2 e
-# folded into the Q prescale / cap / slope constants (see _dkv_kernel).
-_LOG2E = math.log2(math.e)
 
+def _scores(q, k, *, row_pos, col_pos, cols, scale2, softcap,
+            slope2, causal, window, sinks, seg, n_kv, block_k, prec):
+    """Recompute the forward's log2-domain scores for one tile.
 
-def _dropout_keep_tile(seed_ref, bh, q_idx, kv_idx, block_q, block_kv, rate):
-    """Regenerate the forward's dropout keep mask for this block pair.
-
-    Absolute tensor coordinates + the scalar-prefetched seed reproduce
-    the exact mask the forward applied (``_common.dropout_keep``) — the
-    FA-2 trick of never materializing the dropout mask, without the
-    CUDA version's philox-offset bookkeeping (the hash is stateless).
-    ``bh`` must be computed at kernel top level (program_id is not
-    available inside pl.when bodies under interpret mode).
-    ``seed_ref[1]/[2]`` are the shard->global row/col offsets (zero for
-    single-device; see ``_common.pack_dropout_seed``).
+    Returns ``(s, th)``: masked scores (-inf where hidden) and, with a
+    softcap, ``tanh`` of the uncapped score for the chain rule.
     """
-    rows = seed_ref[1] + q_idx * block_q + jax.lax.broadcasted_iota(
-        jnp.int32, (block_q, 1), 0
-    )
-    cols = seed_ref[2] + kv_idx * block_kv + jax.lax.broadcasted_iota(
-        jnp.int32, (1, block_kv), 1
-    )
-    return dropout_keep(seed_ref[0], bh, rows, cols, rate)
+    s = pl.dot(q, k, trans_b=True, precision=prec) * scale2
+    th = None
+    if softcap is not None:
+        c2 = softcap * _LOG2E
+        th = jnp.tanh(s * (1.0 / c2))
+        s = c2 * th
+    if slope2 is not None:
+        s = s + slope2 * (col_pos - row_pos).astype(jnp.float32)
+    visible = None
+    if causal:
+        visible = col_pos <= row_pos
+        if window is not None:
+            keep = col_pos > row_pos - window
+            if sinks:
+                keep = keep | (col_pos < sinks)
+            visible = visible & keep
+    if seg is not None:
+        visible = seg if visible is None else visible & seg
+    if n_kv % block_k:
+        in_range = cols[None, :] < n_kv
+        visible = in_range if visible is None else visible & in_range
+    if visible is not None:
+        s = jnp.where(visible, s, -jnp.inf)
+    return s, th
 
 
-def _dropout_bh(seed_ref, dropout_heads):
-    """Global (batch*heads + head) hash-stream index for this program.
-
-    Mirrors the forward kernel: seed_ref[3]/[4] carry the dp/tp shard
-    offsets and ``dropout_heads`` the static GLOBAL head count (local
-    head count when None).
-    """
-    mul = dropout_heads if dropout_heads is not None else pl.num_programs(1)
-    return (pl.program_id(0) + seed_ref[3]) * mul + (
-        pl.program_id(1) + seed_ref[4]
-    )
+def _ds(p, dp, delta, th):
+    """dS (gradient w.r.t. the capped, biased natural-log score) and the
+    same chained through the cap."""
+    du = p * (dp - delta[:, None])
+    dx = du if th is None else du * (1.0 - th * th)
+    return du, dx
 
 
 def _dkv_kernel(
-    off_ref,
-    seed_ref,
-    slopes_ref,
-    q_ref,
-    k_ref,
-    v_ref,
-    do_ref,
-    lse_ref,
-    delta_ref,
-    qseg_ref,
-    kvseg_ref,
-    dk_ref,
-    dv_ref,
-    dslope_ref,
-    dk_acc,
-    dv_acc,
-    dslope_acc,
-    *,
+    *refs,
+    names: Tuple[str, ...],
     sm_scale: float,
     causal: bool,
-    block_q: int,
-    block_kv: int,
-    num_q_blocks: int,
     window,
-    sinks,
-    softcap=None,
-    pos_div: int = 1,
-    dropout_rate: float = 0.0,
-    dropout_heads=None,
+    sinks: int,
+    softcap,
+    dropout_rate: float,
+    dropout_heads,
+    n_kv: int,
+    block_q: int,
+    block_k: int,
+    num_q_blocks: int,
+    num_heads: int,
+    group: int,
 ):
-    # ``pos_div``: rows-per-position for the GQA head-fold (see
-    # ``flash_fwd._fwd_kernel``): row r masks at logical position
-    # r // pos_div, so each KV head's ``group`` query heads share one
-    # tile and the KV stream is read ONCE per KV head — the backward
-    # analog of the round-3 decode fold, replacing the jnp.repeat
-    # broadcast (group-x HBM on K/V reads and dK/dV stores).
-    kv_idx = pl.program_id(2)
-    q_idx = pl.program_id(3)
-    has_alibi = slopes_ref is not None
+    r = dict(zip(names, refs))
+    j = pl.program_id(0)
+    b = pl.program_id(1)
+    hk = pl.program_id(2)
+    k = r["k"][...]
+    v = r["v"][...]
+    prec = dot_precision(k.dtype)
+    scale2 = sm_scale * _LOG2E
+    cols = j * block_k + jnp.arange(block_k, dtype=jnp.int32)
+    col_pos = cols[None, :]
+    off = r["off"][b] if "off" in r else 0
+    if "kvseg" in r:
+        kvseg = r["kvseg"][...][None, :]
     if dropout_rate:
-        dropout_bh = _dropout_bh(seed_ref, dropout_heads)
-    if has_alibi:
-        # Scalar-prefetched [H] fp32 slopes; natural-log units here (the
-        # backward reconstructs p with exp, not exp2).
-        slope = slopes_ref[pl.program_id(1)]
+        seed = [r["seed"][t] for t in range(5)]
+        bh_mul = dropout_heads if dropout_heads is not None else num_heads
+        drop_cols = (seed[2] + cols)[None, :]
 
-    @pl.when(q_idx == 0)
-    def _init():
-        dk_acc[...] = jnp.zeros_like(dk_acc)
-        dv_acc[...] = jnp.zeros_like(dv_acc)
-        if has_alibi:
-            dslope_acc[...] = jnp.zeros_like(dslope_acc)
-
-    if causal or has_alibi:
-        q_offset = off_ref[pl.program_id(0)]
     if causal:
-        # A Q block contributes to this KV block only if some of its rows
-        # lie on/below the diagonal within the block's columns.
-        should_run = (
-            ((q_idx + 1) * block_q - 1) // pos_div + q_offset
-            >= kv_idx * block_kv
-        )
+        i_lo = jnp.clip(jnp.maximum(j * block_k - off, 0) // block_q, 0,
+                        num_q_blocks)
+        i_hi = num_q_blocks
         if window is not None:
-            # ...and the block's last column is inside some row's window
-            # (or the block holds sink positions).
-            in_window = (
-                (kv_idx + 1) * block_kv - 1
-                >= (q_idx * block_q) // pos_div + q_offset - window + 1
-            )
+            last = (j + 1) * block_k - 1 - off + window - 1
+            i_hi = jnp.where(last < 0, 0, last // block_q + 1)
+            i_hi = jnp.clip(i_hi, 0, num_q_blocks)
             if sinks:
-                in_window |= kv_idx * block_kv < sinks
-            should_run &= in_window
+                i_hi = jnp.where(j * block_k < sinks, num_q_blocks, i_hi)
+        i_hi = jnp.maximum(i_hi, i_lo)
     else:
-        should_run = True
+        i_lo, i_hi = 0, num_q_blocks
 
-    @pl.when(should_run)
-    def _body():
-        q = q_ref[0, 0]
-        k = k_ref[0, 0]
-        v = v_ref[0, 0]
-        do = do_ref[0, 0]
-        lse = lse_ref[0, 0][:, :1]  # (block_q, 1), lane-replicated input
-        # Fully-masked (or lazy-softmax-flushed) rows carry lse = -inf;
-        # exp(s - (-inf)) would be +inf, poisoning every gradient.  A large
-        # finite sentinel makes p underflow to exactly 0 for such rows.
-        lse = jnp.where(jnp.isneginf(lse), 1e30, lse)
-        delta = delta_ref[0, 0][:, :1]
-
-        if causal or has_alibi:
-            row = jax.lax.broadcasted_iota(jnp.int32, (block_q, 1), 0) + (
-                q_idx * block_q
-            )
-            if pos_div != 1:
-                row = row // pos_div
-            row = row + q_offset
-            col = (
-                jax.lax.broadcasted_iota(jnp.int32, (1, block_kv), 1)
-                + kv_idx * block_kv
-            )
-
-        # Recompute S and reconstruct P from the saved logsumexp
-        # (``kernels.metal:1081-1089``).  The forward's score transforms
-        # (tanh softcap, ALiBi bias — the dS-transform site the reference
-        # kernel owns at ``kernels.metal:1160-1169``) are replayed here so
-        # p matches the saved lse exactly.  Round 5: the reconstruction
-        # runs in BASE 2 with sm_scale (and, softcap aside, log2 e)
-        # folded into a [block, D] Q prescale, and the trailing
-        # ``ds * sm_scale`` folded into the [block, D] epilogue store —
-        # three full-area VPU passes (score scale, exp's hidden multiply,
-        # dS scale) off the per-pair critical path, same trick as the
-        # forward engine (flash_fwd.py).
-        pre = sm_scale if softcap is not None else sm_scale * _LOG2E
-        qs = (q.astype(jnp.float32) * pre).astype(q.dtype)
-        s = mxu_dot_general(qs, k, (((1,), (1,)), ((), ())))
-        lse2 = lse * _LOG2E
-        if softcap is not None:
-            # s here is the *natural* scaled score (prescale = sm_scale
-            # only): tanh needs it; the cap constant carries log2 e.
-            u = jnp.tanh(s * (1.0 / softcap))
-            t2 = (softcap * _LOG2E) * u
-        else:
-            t2 = s
-        if has_alibi:
-            dist = (col - row).astype(jnp.float32)
-            t2 = t2 + (slope * _LOG2E) * dist
-        p = jnp.exp2(t2 - lse2)
-
-        if causal:
-            # Unconditional mask on running block pairs (a lax.cond-guarded
-            # variant measured 2x slower — it breaks Mosaic's scheduling).
-            visible = col <= row
-            if window is not None:
-                keep = col > row - window
-                if sinks:
-                    keep |= col < sinks
-                visible &= keep
-            p = jnp.where(visible, p, 0.0)
-        if qseg_ref is not None:
-            qs = jnp.tile(qseg_ref[0], (1, p.shape[1] // NUM_LANES))
-            ks = kvseg_ref[0, :1, :]
-            p = jnp.where(qs == ks, p, 0.0)
-
+    def head_body(g, carry):
+        h = hk * group + g
+        slope2 = r["slopes"][h] * _LOG2E if "slopes" in r else None
         if dropout_rate:
-            # o = (dropout(P)/l) V, so dV sees the dropped P and dP is
-            # masked before entering dS = P*(m*dP - delta)*scale; delta
-            # already equals rowsum(dropout(P)*dP) since it came from
-            # sum(dO*O).  P itself (the softmax Jacobian) stays undropped.
-            keep = _dropout_keep_tile(
-                seed_ref, dropout_bh, q_idx, kv_idx, block_q, block_kv,
-                dropout_rate,
+            drop_bh = (b + seed[3]) * bh_mul + (h + seed[4])
+
+        def body(i, carry):
+            dk, dv = carry
+            sl = pl.ds(i * block_q, block_q)
+            q = r["q"][g, sl, :]
+            do = r["do"][g, sl, :]
+            lse2 = r["lse"][g, sl]
+            delta = r["delta"][g, sl]
+            rows = i * block_q + jnp.arange(block_q, dtype=jnp.int32)
+            seg = None
+            if "qseg" in r:
+                seg = r["qseg"][sl][:, None] == kvseg
+            s, th = _scores(
+                q, k, row_pos=(rows + off)[:, None], col_pos=col_pos,
+                cols=cols, scale2=scale2, softcap=softcap,
+                slope2=slope2, causal=causal, window=window, sinks=sinks,
+                seg=seg, n_kv=n_kv, block_k=block_k, prec=prec,
             )
-            pd = p * keep
-        else:
-            pd = p
+            p = jnp.exp2(s - lse2[:, None])
+            dp = pl.dot(do, v, trans_b=True, precision=prec)
+            if dropout_rate:
+                keep = dropout_keep(
+                    seed[0], drop_bh, (seed[1] + rows)[:, None], drop_cols,
+                    dropout_rate,
+                )
+                pd = p * keep
+                dp = dp * keep
+            else:
+                pd = p
+            dv = dv + pl.dot(pd.astype(do.dtype), do, trans_a=True,
+                             precision=prec)
+            _, dx = _ds(p, dp, delta, th)
+            dk = dk + pl.dot(dx.astype(q.dtype), q, trans_a=True,
+                             precision=prec)
+            return dk, dv
 
-        # dV += P^T dO  (``kernels.metal:1101-1126``, minus the transposes —
-        # the MXU contracts either operand dimension natively).
-        dv_acc[...] += mxu_dot_general(pd.astype(do.dtype), do, (((0,), (0,)), ((), ())))
+        return jax.lax.fori_loop(i_lo, i_hi, body, carry)
 
-        # dP = dO V^T ; dS2 = P * (dP - delta): the cotangent of the
-        # TRANSFORMED score (``kernels.metal:1128-1169``).
-        dp = mxu_dot_general(do, v, (((1,), (1,)), ((), ())))
-        if dropout_rate:
-            dp = dp * keep
-        ds = p * (dp - delta)
-        if has_alibi:
-            # d/d(slope_h) of (slope_h * dist) summed over this block pair;
-            # masked positions contribute 0 through p.  Scalar accumulate,
-            # lane-broadcast into the (1, LANES) scratch.
-            dslope_acc[...] += jnp.sum(ds * dist)
-        if softcap is not None:
-            # Chain through the cap: d(cap*tanh(t/cap))/dt = 1 - tanh^2.
-            # sm_scale moves to the epilogue (see _store).
-            ds = ds * (1.0 - u * u)
-
-        # dK += dS^T Q  (``kernels.metal:1189-1214``); the dS sm_scale
-        # factor is linear through the matmul and lands on the [block, D]
-        # accumulator at store time instead of the [bq, bkv] tile here.
-        dk_acc[...] += mxu_dot_general(ds.astype(q.dtype), q, (((0,), (0,)), ((), ())))
-
-    @pl.when(q_idx == num_q_blocks - 1)
-    def _store():
-        dk_ref[0, 0, :, :] = (dk_acc[...] * sm_scale).astype(dk_ref.dtype)
-        dv_ref[0, 0, :, :] = dv_acc[...].astype(dv_ref.dtype)
-        if has_alibi:
-            dslope_ref[0, 0, :, :] = dslope_acc[...]
+    d = k.shape[-1]
+    zeros = jnp.zeros((block_k, d), jnp.float32)
+    dk, dv = jax.lax.fori_loop(0, group, head_body, (zeros, zeros))
+    r["dk"][...] = (dk * sm_scale).astype(r["dk"].dtype)
+    r["dv"][...] = dv.astype(r["dv"].dtype)
 
 
 def _dq_kernel(
-    off_ref,
-    seed_ref,
-    slopes_ref,
-    q_ref,
-    k_ref,
-    v_ref,
-    do_ref,
-    lse_ref,
-    delta_ref,
-    qseg_ref,
-    kvseg_ref,
-    dq_ref,
-    dq_acc,
-    *,
+    *refs,
+    names: Tuple[str, ...],
     sm_scale: float,
     causal: bool,
-    block_q: int,
-    block_kv: int,
-    num_kv_blocks: int,
     window,
-    sinks,
-    softcap=None,
-    pos_div: int = 1,
-    dropout_rate: float = 0.0,
-    dropout_heads=None,
+    sinks: int,
+    softcap,
+    dropout_rate: float,
+    dropout_heads,
+    n_kv: int,
+    block_q: int,
+    block_k: int,
+    num_kv_blocks: int,
+    num_heads: int,
 ):
-    q_idx = pl.program_id(2)
-    kv_idx = pl.program_id(3)
-    has_alibi = slopes_ref is not None
+    r = dict(zip(names, refs))
+    i = pl.program_id(0)
+    b = pl.program_id(1)
+    h = pl.program_id(2)
+    q = r["q"][...]
+    do = r["do"][...]
+    lse2 = r["lse"][...]
+    delta = r["delta"][...]
+    prec = dot_precision(q.dtype)
+    scale2 = sm_scale * _LOG2E
+    rows = i * block_q + jnp.arange(block_q, dtype=jnp.int32)
+    off = r["off"][b] if "off" in r else 0
+    row_pos = (rows + off)[:, None]
+    slope2 = r["slopes"][h] * _LOG2E if "slopes" in r else None
+    if "qseg" in r:
+        qseg = r["qseg"][...][:, None]
     if dropout_rate:
-        dropout_bh = _dropout_bh(seed_ref, dropout_heads)
-    if has_alibi:
-        slope = slopes_ref[pl.program_id(1)]
+        seed = [r["seed"][t] for t in range(5)]
+        bh_mul = dropout_heads if dropout_heads is not None else num_heads
+        drop_bh = (b + seed[3]) * bh_mul + (h + seed[4])
+        drop_rows = (seed[1] + rows)[:, None]
 
-    @pl.when(kv_idx == 0)
-    def _init():
-        dq_acc[...] = jnp.zeros_like(dq_acc)
-
-    if causal or has_alibi:
-        q_offset = off_ref[pl.program_id(0)]
-    if causal:
-        should_run = (
-            ((q_idx + 1) * block_q - 1) // pos_div + q_offset
-            >= kv_idx * block_kv
+    def body(j, carry):
+        dq, dsl = carry
+        sl = pl.ds(j * block_k, block_k)
+        k = r["k"][sl, :]
+        v = r["v"][sl, :]
+        cols = j * block_k + jnp.arange(block_k, dtype=jnp.int32)
+        col_pos = cols[None, :]
+        seg = None
+        if "qseg" in r:
+            seg = qseg == r["kvseg"][sl][None, :]
+        s, th = _scores(
+            q, k, row_pos=row_pos, col_pos=col_pos, cols=cols, scale2=scale2,
+            softcap=softcap, slope2=slope2, causal=causal,
+            window=window, sinks=sinks, seg=seg, n_kv=n_kv,
+            block_k=block_k, prec=prec,
         )
-        if window is not None:
-            in_window = (
-                (kv_idx + 1) * block_kv - 1
-                >= (q_idx * block_q) // pos_div + q_offset - window + 1
-            )
-            if sinks:
-                in_window |= kv_idx * block_kv < sinks
-            should_run &= in_window
-    else:
-        should_run = True
-
-    @pl.when(should_run)
-    def _body():
-        q = q_ref[0, 0]
-        k = k_ref[0, 0]
-        v = v_ref[0, 0]
-        do = do_ref[0, 0]
-        lse = lse_ref[0, 0][:, :1]
-        # -inf sentinel guard (see _dkv_kernel): flushed rows get p == 0.
-        lse = jnp.where(jnp.isneginf(lse), 1e30, lse)
-        delta = delta_ref[0, 0][:, :1]
-
-        if causal or has_alibi:
-            row = jax.lax.broadcasted_iota(jnp.int32, (block_q, 1), 0) + (
-                q_idx * block_q
-            )
-            if pos_div != 1:
-                row = row // pos_div
-            row = row + q_offset
-            col = (
-                jax.lax.broadcasted_iota(jnp.int32, (1, block_kv), 1)
-                + kv_idx * block_kv
-            )
-
-        # Score recompute + forward transforms, base-2 with folded
-        # prescale/epilogue scales (see _dkv_kernel).
-        pre = sm_scale if softcap is not None else sm_scale * _LOG2E
-        qs = (q.astype(jnp.float32) * pre).astype(q.dtype)
-        s = mxu_dot_general(qs, k, (((1,), (1,)), ((), ())))
-        lse2 = lse * _LOG2E
-        if softcap is not None:
-            u = jnp.tanh(s * (1.0 / softcap))
-            t2 = (softcap * _LOG2E) * u
-        else:
-            t2 = s
-        if has_alibi:
-            dist = (col - row).astype(jnp.float32)
-            t2 = t2 + (slope * _LOG2E) * dist
-        p = jnp.exp2(t2 - lse2)
-
-        if causal:
-            # Unconditional mask on running block pairs (a lax.cond-guarded
-            # variant measured 2x slower — it breaks Mosaic's scheduling).
-            visible = col <= row
-            if window is not None:
-                keep = col > row - window
-                if sinks:
-                    keep |= col < sinks
-                visible &= keep
-            p = jnp.where(visible, p, 0.0)
-        if qseg_ref is not None:
-            qs = jnp.tile(qseg_ref[0], (1, p.shape[1] // NUM_LANES))
-            ks = kvseg_ref[0, :1, :]
-            p = jnp.where(qs == ks, p, 0.0)
-
-        dp = mxu_dot_general(do, v, (((1,), (1,)), ((), ())))
+        p = jnp.exp2(s - lse2[:, None])
+        dp = pl.dot(do, v, trans_b=True, precision=prec)
         if dropout_rate:
-            # Mask dP with the forward's regenerated keep mask (see
-            # _dkv_kernel); P in the dS bracket stays undropped.
-            dp = dp * _dropout_keep_tile(
-                seed_ref, dropout_bh, q_idx, kv_idx, block_q, block_kv,
+            dp = dp * dropout_keep(
+                seed[0], drop_bh, drop_rows, (seed[2] + cols)[None, :],
                 dropout_rate,
             )
-        ds = p * (dp - delta)
-        if softcap is not None:
-            # sm_scale moves to the epilogue (see _store).
-            ds = ds * (1.0 - u * u)
+        du, dx = _ds(p, dp, delta, th)
+        dq = dq + pl.dot(dx.astype(k.dtype), k, precision=prec)
+        if slope2 is not None:
+            dist = (col_pos - row_pos).astype(jnp.float32)
+            dsl = dsl + jnp.sum(du * dist, axis=1)
+        return dq, dsl
 
-        # dQ += dS K  (``kernels.metal:1176-1187``); sm_scale folded into
-        # the [block_q, D] epilogue store.
-        dq_acc[...] += mxu_dot_general(ds.astype(k.dtype), k, (((1,), (0,)), ((), ())))
-
-    @pl.when(kv_idx == num_kv_blocks - 1)
-    def _store():
-        dq_ref[0, 0, :, :] = (dq_acc[...] * sm_scale).astype(dq_ref.dtype)
-
-
-_AUTOTUNE_BWD_WARNED = False
-
-
-def flash_attention_bwd_auto(
-    q, k, v, o, do, lse_lanes, q_offset=None, dlse=None, *,
-    sm_scale=None, causal=False, window=None, sinks=0, segment_ids=None,
-    block_sizes=None, softcap=None, alibi_slopes=None, pos_div=1,
-    dropout_rate=0.0, dropout_seed=None,
-    dropout_offsets=None, dropout_heads=None, interpret=False,
-):
-    """Backward dispatcher: consult the autotuner's persisted decision
-    (impl + blocks) for this shape; FA-2 two-kernel defaults otherwise.
-
-    The training custom-vjp path rides this, so a tuned chip runs
-    whichever of split/fused/tri won the measurement for its shape
-    (tri = the fused triangular static-unroll kernel,
-    ``flash_tri.flash_attention_bwd_tri`` — causal static-offset
-    shapes only).
-    """
-    impl = "split"
-    tri_ok = (
-        causal
-        and window is None
-        and not sinks
-        and segment_ids is None
-        and softcap is None
-        and alibi_slopes is None
-        and not dropout_rate
-        and k.shape[1] == q.shape[1]
-        and q.dtype != jnp.float16
-        and (q_offset is None or isinstance(q_offset, int))
+    carry = (
+        jnp.zeros((block_q, q.shape[-1]), jnp.float32),
+        jnp.zeros((block_q,), jnp.float32),
     )
-    if block_sizes is None:
-        try:
-            from ..harness.autotune import lookup_bwd as _lookup
-
-            hit = _lookup(
-                q.shape[0], q.shape[1], q.shape[2], k.shape[2],
-                q.shape[3], causal, q.dtype,
-            )
-            if hit is not None:
-                impl, block_sizes = hit
-            elif tri_ok and pos_div == 1:
-                # No measured decision: the triangular transposed-
-                # gradient kernel is the DEFAULT for plain-causal shapes
-                # it fits (1.34x over the split pair at the flagship;
-                # round 5) — same default-not-cache-perk policy as the
-                # forward router.
-                from .flash_tri import tri_bwd_heuristic
-
-                off = (
-                    k.shape[2] - q.shape[2]
-                    if q_offset is None
-                    else int(q_offset)
-                )
-                heur = tri_bwd_heuristic(
-                    q.shape[0], q.shape[1], q.shape[2], k.shape[2],
-                    q.shape[3], off,
-                )
-                if heur is not None:
-                    impl = "tri"
-                    block_sizes = {
-                        "block_q": heur[0],
-                        "block_k": heur[1],
-                        "pvt": heur[2],
-                    }
-        except (OSError, KeyError, ValueError, TypeError) as e:
-            global _AUTOTUNE_BWD_WARNED
-            if not _AUTOTUNE_BWD_WARNED:
-                _AUTOTUNE_BWD_WARNED = True
-                import warnings
-
-                warnings.warn(
-                    f"bwd autotune lookup failed ({type(e).__name__}: {e}); "
-                    "using heuristic blocks"
-                )
-            block_sizes = None
-            impl = "split"
-    if impl == "tri":
-        if tri_ok:
-            from .flash_tri import flash_attention_bwd_tri
-
-            return flash_attention_bwd_tri(
-                q, k, v, o, do, lse_lanes, dlse,
-                sm_scale=sm_scale,
-                q_offset=None if q_offset is None else int(q_offset),
-                block_q=block_sizes["block_q"],
-                block_k=block_sizes["block_k"],
-                pv_transposed=block_sizes.get("pvt", False),
-                pos_div=pos_div,
-                interpret=interpret,
-            )
-        # Tuned-for-tri shape reached through an unsupported feature
-        # combination: fall back to the split kernels' heuristic blocks.
-        impl, block_sizes = "split", None
-    if dropout_rate or softcap is not None or alibi_slopes is not None or (
-        pos_div != 1
-    ):
-        # Dropout, score transforms and the GQA row-fold live in the split
-        # kernels only (the fused variant is already measured slower on v5e
-        # and was not extended).
-        return flash_attention_bwd(
-            q, k, v, o, do, lse_lanes, q_offset, dlse,
-            sm_scale=sm_scale, causal=causal, window=window, sinks=sinks,
-            segment_ids=segment_ids, block_sizes=block_sizes,
-            softcap=softcap, alibi_slopes=alibi_slopes, pos_div=pos_div,
-            dropout_rate=dropout_rate, dropout_seed=dropout_seed,
-            dropout_offsets=dropout_offsets, dropout_heads=dropout_heads,
-            interpret=interpret,
-        )
-    kern = flash_attention_bwd_fused if impl == "fused" else flash_attention_bwd
-    return kern(
-        q, k, v, o, do, lse_lanes, q_offset, dlse,
-        sm_scale=sm_scale, causal=causal, window=window, sinks=sinks,
-        segment_ids=segment_ids, block_sizes=block_sizes,
-        interpret=interpret,
-    )
-
-
-def _fused_bwd_kernel(
-    off_ref,
-    q_ref,
-    k_ref,
-    v_ref,
-    do_ref,
-    lse_ref,
-    delta_ref,
-    qseg_ref,
-    kvseg_ref,
-    dk_ref,
-    dv_ref,
-    dqp_ref,
-    dk_acc,
-    dv_acc,
-    *,
-    sm_scale: float,
-    causal: bool,
-    block_q: int,
-    block_kv: int,
-    num_q_blocks: int,
-    window,
-    sinks,
-):
-    """5-matmul fused backward: dK/dV accumulate in VMEM scratch (grid
-    over KV blocks like ``_dkv_kernel``) while the dQ contribution of
-    each (kv, q) pair is emitted as an HBM partial ``dqp[b,h,j,i]`` and
-    reduced outside the kernel.  Saves the dQ kernel's recompute of S
-    and dP — 5 matmuls per block pair instead of the two-kernel path's 7
-    (the trade the reference could not make: its single fused kernel
-    needed global atomics for exactly this, ``kernels.metal:1216-1247``).
-    """
-    kv_idx = pl.program_id(2)
-    q_idx = pl.program_id(3)
-
-    @pl.when(q_idx == 0)
-    def _init():
-        dk_acc[...] = jnp.zeros_like(dk_acc)
-        dv_acc[...] = jnp.zeros_like(dv_acc)
-
     if causal:
-        q_offset = off_ref[pl.program_id(0)]
-        should_run = (
-            (q_idx + 1) * block_q - 1 + q_offset >= kv_idx * block_kv
+        sink_hi, lo, hi = causal_kv_range(
+            i, off, block_q=block_q, block_k=block_k,
+            num_kv_blocks=num_kv_blocks, pos_div=1, window=window,
+            sinks=sinks,
         )
-        if window is not None:
-            in_window = (
-                (kv_idx + 1) * block_kv - 1
-                >= q_idx * block_q + q_offset - window + 1
-            )
-            if sinks:
-                in_window |= kv_idx * block_kv < sinks
-            should_run &= in_window
+        if sinks and window is not None:
+            carry = jax.lax.fori_loop(0, sink_hi, body, carry)
+        dq, dsl = jax.lax.fori_loop(lo, hi, body, carry)
     else:
-        should_run = True
-
-    @pl.when(should_run)
-    def _body():
-        q = q_ref[0, 0]
-        k = k_ref[0, 0]
-        v = v_ref[0, 0]
-        do = do_ref[0, 0]
-        lse = lse_ref[0, 0][:, :1]
-        lse = jnp.where(jnp.isneginf(lse), 1e30, lse)
-        delta = delta_ref[0, 0][:, :1]
-
-        # Base-2 reconstruction with folded scales (see _dkv_kernel).
-        qs2 = (q.astype(jnp.float32) * (sm_scale * _LOG2E)).astype(q.dtype)
-        s = mxu_dot_general(qs2, k, (((1,), (1,)), ((), ())))
-        p = jnp.exp2(s - lse * _LOG2E)
-
-        if causal:
-            row = (
-                jax.lax.broadcasted_iota(jnp.int32, (p.shape[0], 1), 0)
-                + q_idx * block_q
-                + q_offset
-            )
-            col = (
-                jax.lax.broadcasted_iota(jnp.int32, (1, p.shape[1]), 1)
-                + kv_idx * block_kv
-            )
-            visible = col <= row
-            if window is not None:
-                keep = col > row - window
-                if sinks:
-                    keep |= col < sinks
-                visible &= keep
-            p = jnp.where(visible, p, 0.0)
-        if qseg_ref is not None:
-            qs = jnp.tile(qseg_ref[0], (1, p.shape[1] // NUM_LANES))
-            ks = kvseg_ref[0, :1, :]
-            p = jnp.where(qs == ks, p, 0.0)
-
-        dv_acc[...] += mxu_dot_general(p.astype(do.dtype), do, (((0,), (0,)), ((), ())))
-        dp = mxu_dot_general(do, v, (((1,), (1,)), ((), ())))
-        ds = p * (dp - delta)
-        dk_acc[...] += mxu_dot_general(ds.astype(q.dtype), q, (((0,), (0,)), ((), ())))
-        # The 5th matmul the two-kernel path pays 3 recomputes for:
-        # this pair's dQ contribution, emitted as an HBM partial
-        # (sm_scale folded into the [block_q, D] partial store).
-        dqp_ref[0, 0, 0, :, :] = mxu_dot_general(ds.astype(k.dtype), k, (((1,), (0,)), ((), ()))) * sm_scale
-
-    @pl.when(jnp.logical_not(should_run))
-    def _zero():
-        # Skipped pairs must still define their partial block.
-        dqp_ref[0, 0, 0, :, :] = jnp.zeros_like(dqp_ref[0, 0, 0])
-
-    @pl.when(q_idx == num_q_blocks - 1)
-    def _store():
-        dk_ref[0, 0, :, :] = (dk_acc[...] * sm_scale).astype(dk_ref.dtype)
-        dv_ref[0, 0, :, :] = dv_acc[...].astype(dv_ref.dtype)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "sm_scale",
-        "causal",
-        "window",
-        "sinks",
-        "block_sizes",
-        "interpret",
-    ),
-)
-def flash_attention_bwd_fused(
-    q: jax.Array,
-    k: jax.Array,
-    v: jax.Array,
-    o: jax.Array,
-    do: jax.Array,
-    lse_lanes: jax.Array,
-    q_offset: Optional[jax.Array] = None,
-    dlse: Optional[jax.Array] = None,
-    *,
-    sm_scale: Optional[float] = None,
-    causal: bool = False,
-    window: Optional[int] = None,
-    sinks: int = 0,
-    segment_ids=None,
-    block_sizes: Optional[BlockSizes] = None,
-    interpret: bool = False,
-) -> Tuple[jax.Array, jax.Array, jax.Array]:
-    """(dQ, dK, dV) via the fused 5-matmul kernel.
-
-    Semantically identical to ``flash_attention_bwd``; trades
-    ``n_kv/block_kv_fused`` fp32 copies of dQ in HBM traffic for 28%
-    fewer matmul FLOPs.  Wins when the KV block is large (the default
-    2048 makes the partial count 1 for N <= 2048 — zero extra traffic).
-    """
-    batch, heads, n_q, head_dim = q.shape
-    n_kv = k.shape[2]
-    if k.shape[1] != heads:
-        raise ValueError(
-            f"flash_attention_bwd_fused requires equal head counts, got "
-            f"{heads} vs {k.shape[1]}; broadcast KV heads first"
-        )
-    if sm_scale is None:
-        sm_scale = default_scale(head_dim)
-    if block_sizes is None:
-        block_sizes = BlockSizes.for_seq_len(n_q, n_kv)
-    if q_offset is None:
-        q_offset = n_kv - n_q
-    q_offset = jnp.asarray(q_offset, jnp.int32)
-    q_offset = jnp.broadcast_to(q_offset.reshape(-1), (batch,))
-    if window is not None:
-        if not causal:
-            raise ValueError("window requires causal=True")
-        window = int(window)
-
-    has_seg = segment_ids is not None
-    if has_seg:
-        qseg = jax.lax.broadcast_in_dim(
-            segment_ids.q.astype(jnp.int32), (batch, n_q, NUM_LANES), (0, 1)
-        )
-        kvseg = jax.lax.broadcast_in_dim(
-            segment_ids.kv.astype(jnp.int32),
-            (batch, NUM_SUBLANES, n_kv),
-            (0, 2),
-        )
-
-    delta = jnp.sum(
-        o.astype(jnp.float32) * do.astype(jnp.float32), axis=-1, keepdims=True
-    )
-    if dlse is not None:
-        delta = delta - dlse.astype(jnp.float32)[..., None]
-    delta_lanes = jnp.broadcast_to(delta, (*delta.shape[:-1], NUM_LANES))
-
-    bq = min(block_sizes.block_q_fused, n_q)
-    bkv = min(block_sizes.block_kv_fused, n_kv)
-    if n_q % bq or n_kv % bkv:
-        raise ValueError(
-            f"({n_q},{n_kv}) not divisible by fused blocks ({bq},{bkv})"
-        )
-    num_q_blocks = n_q // bq
-    num_kv_blocks = n_kv // bkv
-    grid = (batch, heads, num_kv_blocks, num_q_blocks)
-
-    if causal:
-        # Q blocks entirely above the diagonal are compute-skipped; clamp
-        # their index so the pipeline elides the Q/dO/LSE/delta DMAs
-        # (same as _dkv_kernel's map).
-        def q_block_map(b, h, j, i, off_ref, *_):
-            i_min = (j * bkv - off_ref[b]) // bq
-            i_eff = jnp.maximum(i, i_min)
-            if window is not None and not sinks:
-                i_max = ((j + 1) * bkv + window - off_ref[b] - 2) // bq
-                i_eff = jnp.minimum(i_eff, i_max)
-            i_eff = jnp.clip(i_eff, 0, num_q_blocks - 1)
-            return (b, h, i_eff, 0)
-
-    else:
-        def q_block_map(b, h, j, i, *_):
-            return (b, h, i, 0)
-
-    bound = functools.partial(
-        _fused_bwd_kernel,
-        sm_scale=sm_scale,
-        causal=causal,
-        block_q=bq,
-        block_kv=bkv,
-        num_q_blocks=num_q_blocks,
-        window=window,
-        sinks=int(sinks),
-    )
-    if has_seg:
-        kernel = bound
-    else:
-        def kernel(off_r, q_r, k_r, v_r, do_r, lse_r, d_r, *rest):
-            return bound(
-                off_r, q_r, k_r, v_r, do_r, lse_r, d_r, None, None, *rest
-            )
-
-    in_specs = [
-        pl.BlockSpec((1, 1, bq, head_dim), q_block_map),
-        pl.BlockSpec((1, 1, bkv, head_dim), lambda b, h, j, i, *_: (b, h, j, 0)),
-        pl.BlockSpec((1, 1, bkv, head_dim), lambda b, h, j, i, *_: (b, h, j, 0)),
-        pl.BlockSpec((1, 1, bq, head_dim), q_block_map),
-        pl.BlockSpec((1, 1, bq, NUM_LANES), q_block_map),
-        pl.BlockSpec((1, 1, bq, NUM_LANES), q_block_map),
-    ]
-    inputs = [q, k, v, do, lse_lanes, delta_lanes]
-    if has_seg:
-        def qseg_map(b, h, j, i, *args):
-            bb, hh, ii, _ = q_block_map(b, h, j, i, *args)
-            return (bb, ii, 0)
-
-        in_specs.append(pl.BlockSpec((1, bq, NUM_LANES), qseg_map))
-        in_specs.append(
-            pl.BlockSpec(
-                (1, NUM_SUBLANES, bkv), lambda b, h, j, i, *_: (b, 0, j)
-            )
-        )
-        inputs += [qseg, kvseg]
-
-    dk, dv, dqp = pl.pallas_call(
-        kernel,
-        out_shape=[
-            jax.ShapeDtypeStruct(k.shape, k.dtype),
-            jax.ShapeDtypeStruct(v.shape, v.dtype),
-            jax.ShapeDtypeStruct(
-                (batch, heads, num_kv_blocks, n_q, head_dim), jnp.float32
-            ),
-        ],
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=grid,
-            in_specs=in_specs,
-            out_specs=[
-                pl.BlockSpec(
-                    (1, 1, bkv, head_dim), lambda b, h, j, i, *_: (b, h, j, 0)
-                ),
-                pl.BlockSpec(
-                    (1, 1, bkv, head_dim), lambda b, h, j, i, *_: (b, h, j, 0)
-                ),
-                pl.BlockSpec(
-                    (1, 1, 1, bq, head_dim),
-                    lambda b, h, j, i, *_: (b, h, j, i, 0),
-                ),
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((bkv, head_dim), jnp.float32),
-                pltpu.VMEM((bkv, head_dim), jnp.float32),
-            ],
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=5 * batch * heads * n_q * n_kv * head_dim,
-            bytes_accessed=2
-            * (q.size + k.size + v.size + do.size)
-            * q.dtype.itemsize
-            + 2 * batch * heads * num_kv_blocks * n_q * head_dim * 4,
-            transcendentals=batch * heads * n_q * n_kv,
-        ),
-        interpret=interpret,
-    )(q_offset, *inputs)
-
-    dq = dqp.sum(axis=2).astype(q.dtype) if num_kv_blocks > 1 else (
-        dqp[:, :, 0].astype(q.dtype)
-    )
-    return dq, dk, dv
+        dq, dsl = jax.lax.fori_loop(0, num_kv_blocks, body, carry)
+    r["dq"][...] = (dq * sm_scale).astype(r["dq"].dtype)
+    if "dslope" in r:
+        r["dslope"][...] = dsl
 
 
 @functools.partial(
@@ -830,10 +280,8 @@ def flash_attention_bwd_fused(
         "sinks",
         "block_sizes",
         "softcap",
-        "pos_div",
         "dropout_rate",
         "dropout_heads",
-        "interpret",
     ),
 )
 def flash_attention_bwd(
@@ -842,7 +290,7 @@ def flash_attention_bwd(
     v: jax.Array,
     o: jax.Array,
     do: jax.Array,
-    lse_lanes: jax.Array,
+    lse: jax.Array,
     q_offset: Optional[jax.Array] = None,
     dlse: Optional[jax.Array] = None,
     *,
@@ -854,430 +302,158 @@ def flash_attention_bwd(
     block_sizes: Optional[BlockSizes] = None,
     softcap: Optional[float] = None,
     alibi_slopes: Optional[jax.Array] = None,
-    pos_div: int = 1,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[jax.Array] = None,
     dropout_offsets=None,
     dropout_heads: Optional[int] = None,
-    interpret: bool = False,
 ) -> Tuple[jax.Array, ...]:
-    """(dQ, dK, dV) given saved output + lane-replicated logsumexp.
+    """(dQ, dK, dV) from the saved output and ``lse [B, H, N_q]``.
 
-    ``lse_lanes`` is the ``[B, H, N_q, 128]`` residual produced by
-    ``flash_attention_fwd(..., save_lse=True)``.
-
-    ``dlse``: optional ``[B, H, N_q]`` cotangent on the logsumexp output.
-    Because d(lse_i)/d(s_ij) = p_ij, the lse cotangent folds into the
-    existing dS = P*(dP - delta)*scale bracket as ``delta_i - dlse_i`` —
-    it costs nothing beyond the delta precompute (dV has no lse term).
-
-    ``softcap`` / ``alibi_slopes``: replay the forward's score transforms
-    in the recompute and chain dS through them in-kernel — the TPU analog
-    of the dS-transform site in the reference backward
-    (``kernels.metal:1160-1169``); no O(N^2) score tensor is ever
-    materialized.  With ``alibi_slopes`` the return value grows a fourth
-    element ``d_slopes`` ([H] fp32: sum of dS * distance over all blocks).
-
-    ``pos_div``: rows-per-position for the GQA head-fold (see
-    ``flash_fwd``): callers fold each KV head's ``group`` query heads
-    into adjacent rows, so dK/dV accumulate across the whole group in
-    VMEM scratch while K/V stream from HBM once per KV head — replacing
-    the group-x ``jnp.repeat`` broadcast.  Requires no dropout/alibi.
+    ``k``/``v`` may have fewer heads than ``q`` (GQA/MQA); dK/dV come back
+    with the KV head count.  ``dlse``: optional ``[B, H, N_q]`` cotangent
+    on the logsumexp output.  With ``alibi_slopes`` a fourth element
+    ``d_slopes`` (``[H]`` fp32) is returned.  The other arguments have
+    ``flash_attention_fwd``'s meaning and must match the forward call.
     """
-    if q.dtype == jnp.float16:
-        # fp16 is a storage dtype on TPU (no Mosaic f16 datapath): run
-        # the backward in fp32 and round the gradients back.
-        out = flash_attention_bwd(
-            q.astype(jnp.float32),
-            k.astype(jnp.float32),
-            v.astype(jnp.float32),
-            o.astype(jnp.float32),
-            do.astype(jnp.float32),
-            lse_lanes,
-            q_offset,
-            dlse,
-            sm_scale=sm_scale,
-            causal=causal,
-            window=window,
-            sinks=sinks,
-            segment_ids=segment_ids,
-            block_sizes=block_sizes,
-            softcap=softcap,
-            alibi_slopes=alibi_slopes,
-            pos_div=pos_div,
-            dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed,
-            dropout_offsets=dropout_offsets,
-            dropout_heads=dropout_heads,
-            interpret=interpret,
-        )
-        halved = tuple(g.astype(jnp.float16) for g in out[:3])
-        return halved + tuple(out[3:])  # d_slopes stays fp32
-
     batch, heads, n_q, head_dim = q.shape
-    n_kv = k.shape[2]
-    if k.shape[1] != heads:
-        # The grid/index maps below assume equal Q and KV head counts; a
-        # smaller KV head axis would silently clamp block indices and
-        # produce wrong gradients.  GQA callers must broadcast KV heads
-        # first and group-reduce dk/dv after, or fold the group into rows
-        # with ``pos_div`` (see ops.attention).
+    kv_heads, n_kv = k.shape[1], k.shape[2]
+    if heads % kv_heads:
         raise ValueError(
-            f"flash_attention_bwd requires equal head counts, got q heads "
-            f"{heads} vs kv heads {k.shape[1]}; broadcast or fold KV heads "
-            f"first"
+            f"q heads ({heads}) must be a multiple of kv heads ({kv_heads})"
         )
+    group = heads // kv_heads
     if sm_scale is None:
         sm_scale = default_scale(head_dim)
-    if block_sizes is None:
-        block_sizes = BlockSizes.for_seq_len(n_q, n_kv)
-    if pos_div != 1:
-        if pos_div < 1:
-            raise ValueError(f"pos_div must be >= 1, got {pos_div}")
-        if dropout_rate or alibi_slopes is not None:
-            raise NotImplementedError(
-                "pos_div > 1 (GQA row-fold) does not compose with dropout "
-                "or per-head alibi slopes; use the broadcast path"
-            )
-    if q_offset is None:
-        q_offset = n_kv - n_q // pos_div
-    q_offset = jnp.asarray(q_offset, jnp.int32)
-    q_offset = jnp.broadcast_to(q_offset.reshape(-1), (batch,))
     if window is not None:
         if not causal:
             raise ValueError("window requires causal=True")
         window = int(window)
+    if dropout_rate:
+        if not 0.0 < dropout_rate < 1.0:
+            raise ValueError(
+                f"dropout_rate must be in [0, 1), got {dropout_rate}"
+            )
+        if dropout_seed is None:
+            raise ValueError("dropout_rate > 0 requires dropout_seed")
+    bs = (block_sizes or BlockSizes()).resolve(n_q, n_kv, head_dim)
+    bq, bk = bs.block_q_bwd, bs.block_k_bwd
+    n_q_pad, n_kv_pad = _round_up(n_q, bq), _round_up(n_kv, bk)
+    dp = pad_dim(head_dim)
 
-    if dropout_rate and not 0.0 < dropout_rate < 1.0:
-        raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
-    has_dropout = dropout_rate > 0.0
-    if has_dropout and dropout_seed is None:
-        raise ValueError("dropout_rate > 0 requires dropout_seed")
-    has_alibi = alibi_slopes is not None
-    scalar_args = [q_offset]
-    if has_dropout:
-        # int32 [seed, row_off, col_off, b_off, h_off] as a second
-        # scalar-prefetch operand (mirrors the forward); index maps
-        # tolerate the extra trailing ref.
-        scalar_args.append(pack_dropout_seed(dropout_seed, dropout_offsets))
-    if has_alibi:
-        # [H] fp32 slopes in SMEM (scalar prefetch) — same convention as
-        # the forward kernel (true scalar read, natural-log units here).
-        scalar_args.append(
-            jnp.asarray(alibi_slopes, jnp.float32).reshape(heads)
-        )
-
-    has_seg = segment_ids is not None
-    if has_seg:
-        qseg = jax.lax.broadcast_in_dim(
-            segment_ids.q.astype(jnp.int32),
-            (batch, n_q, NUM_LANES),
-            (0, 1),
-        )
-        kvseg = jax.lax.broadcast_in_dim(
-            segment_ids.kv.astype(jnp.int32),
-            (batch, NUM_SUBLANES, n_kv),
-            (0, 2),
-        )
-
-    # delta_i = sum(dO * O) per row (``kernels.metal:982-990``), precomputed
-    # once and shared by both kernels; lane-replicated like the LSE.
-    delta = jnp.sum(
-        o.astype(jnp.float32) * do.astype(jnp.float32), axis=-1, keepdims=True
-    )
+    delta = jnp.sum(o.astype(jnp.float32) * do.astype(jnp.float32), -1)
     if dlse is not None:
-        delta = delta - dlse.astype(jnp.float32)[..., None]
-    delta_lanes = jnp.broadcast_to(delta, (*delta.shape[:-1], NUM_LANES))
+        delta = delta - dlse.astype(jnp.float32)
+    # Fully masked rows (lse = -inf) and padding rows get +inf, so their
+    # recomputed probabilities are exp2(-inf) = 0 instead of NaN.
+    lse2 = jnp.where(jnp.isneginf(lse), jnp.inf, lse * _LOG2E)
 
-    # ---------------- dK/dV kernel ----------------
-    bq = min(block_sizes.block_q_dkv, n_q)
-    bkv = min(block_sizes.block_kv_dkv, n_kv)
-    if n_q % bq or n_kv % bkv:
-        raise ValueError(f"({n_q},{n_kv}) not divisible by dkv blocks ({bq},{bkv})")
-    num_q_blocks = n_q // bq
+    q_p = _pad_to(_pad_to(q, 3, dp), 2, n_q_pad)
+    do_p = _pad_to(_pad_to(do.astype(q.dtype), 3, dp), 2, n_q_pad)
+    k_p = _pad_to(_pad_to(k, 3, dp), 2, n_kv_pad)
+    v_p = _pad_to(_pad_to(v, 3, dp), 2, n_kv_pad)
+    lse_p = _pad_to(lse2.astype(jnp.float32), 2, n_q_pad, jnp.inf)
+    delta_p = _pad_to(delta, 2, n_q_pad)
 
-    if causal:
-        # Q blocks entirely above the causal diagonal are compute-skipped
-        # (``pl.when(should_run)``); clamping their block index to the first
-        # contributing Q block makes consecutive index_map results identical
-        # so the pipeline elides their Q/dO/LSE/delta DMAs (same trick as
-        # the forward's KV clamp).  i_min is the first Q block whose last
-        # row position ((i+1)*bq-1)//pos_div reaches the KV block's first
-        # column: floor((j*bkv - off) * pos_div / bq).
-        def q_block_map(b, h, j, i, off_ref, *_):
-            i_min = ((j * bkv - off_ref[b]) * pos_div) // bq
-            i_eff = jnp.maximum(i, i_min)
-            if window is not None and not sinks:
-                # Q blocks whose windows have slid past this KV block
-                # re-map to the last contributing Q block (DMA elided).
-                # (Sink KV blocks are visible to every later Q block, so
-                # no upper clamp applies when sinks are on.)
-                m = (j + 1) * bkv + window - off_ref[b] - 2
-                i_max = ((m + 1) * pos_div - 1) // bq
-                i_eff = jnp.minimum(i_eff, i_max)
-            i_eff = jnp.clip(i_eff, 0, num_q_blocks - 1)
-            return (b, h, i_eff, 0)
-
-    else:
-        def q_block_map(b, h, j, i, *_):
-            return (b, h, i, 0)
-
-    def lanes_spec(bq):
-        return pl.BlockSpec((1, 1, bq, NUM_LANES), q_block_map)
-
-    num_kv_blocks_dkv = n_kv // bkv
-    dkv_grid = (batch, heads, num_kv_blocks_dkv, num_q_blocks)
-    dkv_bound = functools.partial(
-        _dkv_kernel,
-        sm_scale=sm_scale,
-        causal=causal,
-        block_q=bq,
-        block_kv=bkv,
-        num_q_blocks=num_q_blocks,
-        window=window,
-        sinks=int(sinks),
-        softcap=softcap,
-        pos_div=pos_div,
-        dropout_rate=dropout_rate,
-        dropout_heads=dropout_heads,
+    extra = []  # (name, array, dkv spec, dq spec)
+    if causal or alibi_slopes is not None:
+        if q_offset is None:
+            q_offset = n_kv - n_q
+        off = jnp.broadcast_to(
+            jnp.asarray(q_offset, jnp.int32).reshape(-1), (batch,)
+        )
+        whole = pl.BlockSpec((batch,), lambda x, b, h: (0,))
+        extra.append(("off", off, whole, whole))
+    if segment_ids is not None:
+        qseg = _pad_to(segment_ids.q.astype(jnp.int32), 1, n_q_pad, -1)
+        kvseg = _pad_to(segment_ids.kv.astype(jnp.int32), 1, n_kv_pad, -2)
+        extra.append((
+            "qseg", qseg,
+            pl.BlockSpec((None, n_q_pad), lambda j, b, h: (b, 0)),
+            pl.BlockSpec((None, bq), lambda i, b, h: (b, i)),
+        ))
+        extra.append((
+            "kvseg", kvseg,
+            pl.BlockSpec((None, bk), lambda j, b, h: (b, j)),
+            pl.BlockSpec((None, n_kv_pad), lambda i, b, h: (b, 0)),
+        ))
+    if alibi_slopes is not None:
+        slopes = jnp.asarray(alibi_slopes, jnp.float32).reshape(heads)
+        whole = pl.BlockSpec((heads,), lambda x, b, h: (0,))
+        extra.append(("slopes", slopes, whole, whole))
+    if dropout_rate:
+        seed = _pad_to(pack_dropout_seed(dropout_seed, dropout_offsets), 0, 8)
+        whole = pl.BlockSpec((8,), lambda x, b, h: (0,))
+        extra.append(("seed", seed, whole, whole))
+    common = dict(
+        sm_scale=float(sm_scale), causal=causal, window=window,
+        sinks=int(sinks), softcap=softcap, dropout_rate=float(dropout_rate),
+        dropout_heads=dropout_heads, n_kv=n_kv, block_q=bq, block_k=bk,
+        num_heads=heads,
     )
+    # 64x64 tiles with 4 warps measured fastest on an H100 at head dim
+    # 128: 8 warps were 1.5-1.8x slower, 128-row query tiles up to 1.17x
+    # (CHANGES.md).
+    params = plt.CompilerParams(num_warps=4, num_stages=2)
+    interpret = pallas_interpret()
 
-    def dkv_kernel(off_r, *rest):
-        seed_r = slopes_r = None
-        if has_dropout:
-            seed_r, rest = rest[0], rest[1:]
-        if has_alibi:
-            slopes_r, rest = rest[0], rest[1:]
-        q_r, k_r, v_r, do_r, lse_r, d_r = rest[:6]
-        rest = rest[6:]
-        if has_seg:
-            qs_r, ks_r = rest[:2]
-            rest = rest[2:]
-        else:
-            qs_r = ks_r = None
-        dk_r, dv_r = rest[:2]
-        rest = rest[2:]
-        dslope_r = None
-        if has_alibi:
-            dslope_r, rest = rest[0], rest[1:]
-        dk_a, dv_a = rest[:2]
-        rest = rest[2:]
-        dslope_a = rest[0] if has_alibi else None
-        return dkv_bound(
-            off_r, seed_r, slopes_r, q_r, k_r, v_r, do_r, lse_r, d_r,
-            qs_r, ks_r, dk_r, dv_r, dslope_r, dk_a, dv_a, dslope_a,
-        )
-
-    dkv_in_specs = [
-        pl.BlockSpec((1, 1, bq, head_dim), q_block_map),
-        pl.BlockSpec((1, 1, bkv, head_dim), lambda b, h, j, i, *_: (b, h, j, 0)),
-        pl.BlockSpec((1, 1, bkv, head_dim), lambda b, h, j, i, *_: (b, h, j, 0)),
-        pl.BlockSpec((1, 1, bq, head_dim), q_block_map),
-        lanes_spec(bq),
-        lanes_spec(bq),
-    ]
-    dkv_inputs = [q, k, v, do, lse_lanes, delta_lanes]
-    if has_seg:
-        def dkv_qseg_map(b, h, j, i, *args):
-            bb, hh, ii, _ = q_block_map(b, h, j, i, *args)
-            return (bb, ii, 0)
-
-        dkv_in_specs.append(
-            pl.BlockSpec((1, bq, NUM_LANES), dkv_qseg_map)
-        )
-        dkv_in_specs.append(
-            pl.BlockSpec(
-                (1, NUM_SUBLANES, bkv), lambda b, h, j, i, *_: (b, 0, j)
-            )
-        )
-        dkv_inputs += [qseg, kvseg]
-
-    dkv_out_shapes = [
-        jax.ShapeDtypeStruct(k.shape, k.dtype),
-        jax.ShapeDtypeStruct(v.shape, v.dtype),
-    ]
-    dkv_out_specs = [
-        pl.BlockSpec((1, 1, bkv, head_dim), lambda b, h, j, i, *_: (b, h, j, 0)),
-        pl.BlockSpec((1, 1, bkv, head_dim), lambda b, h, j, i, *_: (b, h, j, 0)),
-    ]
-    dkv_scratch = [
-        pltpu.VMEM((bkv, head_dim), jnp.float32),
-        pltpu.VMEM((bkv, head_dim), jnp.float32),
-    ]
-    if has_alibi:
-        # Per-(b, h, kv-block) d_slope partials (scalar, lane-replicated);
-        # reduced to [H] after the call.
-        dkv_out_shapes.append(
-            jax.ShapeDtypeStruct(
-                (batch, heads, num_kv_blocks_dkv, NUM_LANES), jnp.float32
-            )
-        )
-        dkv_out_specs.append(
-            pl.BlockSpec(
-                (1, 1, 1, NUM_LANES), lambda b, h, j, i, *_: (b, h, j, 0)
-            )
-        )
-        dkv_scratch.append(pltpu.VMEM((1, NUM_LANES), jnp.float32))
-
-    dkv_results = pl.pallas_call(
-        dkv_kernel,
-        out_shape=dkv_out_shapes,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=len(scalar_args),
-        grid=dkv_grid,
-        in_specs=dkv_in_specs,
-        out_specs=dkv_out_specs,
-        scratch_shapes=dkv_scratch,
+    # ---- dK/dV: grid (KV block, batch, KV head) ----
+    grp = pl.BlockSpec((None, group, n_q_pad, dp),
+                       lambda j, b, h: (b, h, 0, 0))
+    grp_row = pl.BlockSpec((None, group, n_q_pad), lambda j, b, h: (b, h, 0))
+    tile = pl.BlockSpec((None, None, bk, dp), lambda j, b, h: (b, h, j, 0))
+    names = ["q", "do", "lse", "delta", "k", "v"] + [e[0] for e in extra]
+    dk, dv = pl.pallas_call(
+        functools.partial(
+            _dkv_kernel, names=tuple(names + ["dk", "dv"]),
+            num_q_blocks=n_q_pad // bq, group=group, **common,
         ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel", "arbitrary"),
-            # The in-kernel dropout mask regeneration adds ~2MB of live
-            # intermediates and the softcap/ALiBi transforms keep an extra
-            # (bq, bkv) fp32 tile (tanh u / distance) alive; the 16MB
-            # scoped-vmem default OOMs (dropout measured 17.89M, softcap
-            # 17.61M at 1024x1024 d=64 blocks).  Without extras the
-            # default is the measured-fastest setting — leave it alone.
-            vmem_limit_bytes=(
-                32 * 1024 * 1024
-                if (has_dropout and (softcap is not None or has_alibi))
-                else 24 * 1024 * 1024
-                if (has_dropout or softcap is not None or has_alibi)
-                else None
-            ),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=6 * batch * heads * n_q * n_kv * head_dim,
-            bytes_accessed=2
-            * (q.size + k.size + v.size + do.size)
-            * q.dtype.itemsize,
-            transcendentals=batch * heads * n_q * n_kv,
-        ),
+        out_shape=[jax.ShapeDtypeStruct(k_p.shape, k.dtype),
+                   jax.ShapeDtypeStruct(v_p.shape, v.dtype)],
+        grid=(n_kv_pad // bk, batch, kv_heads),
+        in_specs=[grp, grp, grp_row, grp_row, tile, tile]
+        + [e[2] for e in extra],
+        out_specs=[tile, tile],
+        compiler_params=params,
         interpret=interpret,
-    )(*scalar_args, *dkv_inputs)
-    dk, dv = dkv_results[:2]
-    d_slopes = None
-    if has_alibi:
-        # Scalar was lane-broadcast; take lane 0, reduce batch + kv blocks.
-        d_slopes = dkv_results[2][..., 0].sum(axis=(0, 2))
+        backend="triton",
+        name="flash_bwd_dkv",
+    )(q_p, do_p, lse_p, delta_p, k_p, v_p, *[e[1] for e in extra])
 
-    # ---------------- dQ kernel ----------------
-    bq = min(block_sizes.block_q_dq, n_q)
-    bkv = min(block_sizes.block_kv_dq, n_kv)
-    if n_q % bq or n_kv % bkv:
-        raise ValueError(f"({n_q},{n_kv}) not divisible by dq blocks ({bq},{bkv})")
-    num_kv_blocks = n_kv // bkv
-    dq_grid = (batch, heads, n_q // bq, num_kv_blocks)
-
-    if causal:
-        # Mirror of the forward's clamp: above-diagonal KV blocks re-map to
-        # the diagonal block so their K/V DMAs are elided (row positions
-        # are block-row indices // pos_div under the GQA fold).
-        def kv_block_map(b, h, i, j, off_ref, *_):
-            diag = (((i + 1) * bq - 1) // pos_div + off_ref[b]) // bkv
-            j_eff = jnp.minimum(j, diag)
-            if window is not None and not sinks:
-                j_min = (
-                    (i * bq) // pos_div + off_ref[b] - window + 1
-                ) // bkv
-                j_eff = jnp.maximum(j_eff, j_min)
-            j_eff = jnp.clip(j_eff, 0, num_kv_blocks - 1)
-            return (b, h, j_eff, 0)
-
-    else:
-        def kv_block_map(b, h, i, j, *_):
-            return (b, h, j, 0)
-
-    dq_bound = functools.partial(
-        _dq_kernel,
-        sm_scale=sm_scale,
-        causal=causal,
-        block_q=bq,
-        block_kv=bkv,
-        num_kv_blocks=num_kv_blocks,
-        window=window,
-        sinks=int(sinks),
-        softcap=softcap,
-        pos_div=pos_div,
-        dropout_rate=dropout_rate,
-        dropout_heads=dropout_heads,
-    )
-
-    def dq_kernel(off_r, *rest):
-        seed_r = slopes_r = None
-        if has_dropout:
-            seed_r, rest = rest[0], rest[1:]
-        if has_alibi:
-            slopes_r, rest = rest[0], rest[1:]
-        q_r, k_r, v_r, do_r, lse_r, d_r = rest[:6]
-        rest = rest[6:]
-        if has_seg:
-            qs_r, ks_r = rest[:2]
-            rest = rest[2:]
-        else:
-            qs_r = ks_r = None
-        return dq_bound(
-            off_r, seed_r, slopes_r, q_r, k_r, v_r, do_r, lse_r, d_r,
-            qs_r, ks_r, *rest
+    # ---- dQ: grid (query block, batch, query head) ----
+    qtile = pl.BlockSpec((None, None, bq, dp), lambda i, b, h: (b, h, i, 0))
+    qrow = pl.BlockSpec((None, None, bq), lambda i, b, h: (b, h, i))
+    kv_all = pl.BlockSpec((None, None, n_kv_pad, dp),
+                          lambda i, b, h: (b, h // group, 0, 0))
+    out_shape = [jax.ShapeDtypeStruct(q_p.shape, q.dtype)]
+    out_specs = [qtile]
+    names = ["q", "do", "lse", "delta", "k", "v"] + [e[0] for e in extra]
+    names.append("dq")
+    if alibi_slopes is not None:
+        out_shape.append(
+            jax.ShapeDtypeStruct((batch, heads, n_q_pad), jnp.float32)
         )
-
-    dq_in_specs = [
-        pl.BlockSpec((1, 1, bq, head_dim), lambda b, h, i, j, *_: (b, h, i, 0)),
-        pl.BlockSpec((1, 1, bkv, head_dim), kv_block_map),
-        pl.BlockSpec((1, 1, bkv, head_dim), kv_block_map),
-        pl.BlockSpec((1, 1, bq, head_dim), lambda b, h, i, j, *_: (b, h, i, 0)),
-        pl.BlockSpec((1, 1, bq, NUM_LANES), lambda b, h, i, j, *_: (b, h, i, 0)),
-        pl.BlockSpec((1, 1, bq, NUM_LANES), lambda b, h, i, j, *_: (b, h, i, 0)),
-    ]
-    dq_inputs = [q, k, v, do, lse_lanes, delta_lanes]
-    if has_seg:
-        dq_in_specs.append(
-            pl.BlockSpec((1, bq, NUM_LANES), lambda b, h, i, j, *_: (b, i, 0))
-        )
-
-        def dq_kvseg_map(b, h, i, j, *args):
-            bb, hh, jj, _ = kv_block_map(b, h, i, j, *args)
-            return (bb, 0, jj)
-
-        dq_in_specs.append(
-            pl.BlockSpec((1, NUM_SUBLANES, bkv), dq_kvseg_map)
-        )
-        dq_inputs += [qseg, kvseg]
-
-    dq = pl.pallas_call(
-        dq_kernel,
-        out_shape=jax.ShapeDtypeStruct(q.shape, q.dtype),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=len(scalar_args),
-        grid=dq_grid,
-        in_specs=dq_in_specs,
-        out_specs=pl.BlockSpec(
-            (1, 1, bq, head_dim), lambda b, h, i, j, *_: (b, h, i, 0)
+        out_specs.append(qrow)
+        names.append("dslope")
+    res = pl.pallas_call(
+        functools.partial(
+            _dq_kernel, names=tuple(names),
+            num_kv_blocks=n_kv_pad // bk, **common,
         ),
-        scratch_shapes=[pltpu.VMEM((bq, head_dim), jnp.float32)],
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel", "arbitrary"),
-            # See the dKdV kernel: dropout/softcap/ALiBi need headroom over
-            # the 16MB scoped-vmem default; None keeps the measured-best
-            # default.
-            vmem_limit_bytes=(
-                32 * 1024 * 1024
-                if (has_dropout and (softcap is not None or has_alibi))
-                else 24 * 1024 * 1024
-                if (has_dropout or softcap is not None or has_alibi)
-                else None
-            ),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=5 * batch * heads * n_q * n_kv * head_dim,
-            bytes_accessed=2
-            * (q.size + k.size + v.size + do.size)
-            * q.dtype.itemsize,
-            transcendentals=batch * heads * n_q * n_kv,
-        ),
+        out_shape=out_shape,
+        grid=(n_q_pad // bq, batch, heads),
+        in_specs=[qtile, qtile, qrow, qrow, kv_all, kv_all]
+        + [e[3] for e in extra],
+        out_specs=out_specs,
+        compiler_params=params,
         interpret=interpret,
-    )(*scalar_args, *dq_inputs)
+        backend="triton",
+        name="flash_bwd_dq",
+    )(q_p, do_p, lse_p, delta_p, k_p, v_p, *[e[1] for e in extra])
 
-    if has_alibi:
+    dq = res[0][:, :, :n_q, :head_dim]
+    dk = dk[:, :, :n_kv, :head_dim]
+    dv = dv[:, :, :n_kv, :head_dim]
+    if alibi_slopes is not None:
+        d_slopes = jnp.sum(res[1][:, :, :n_q], axis=(0, 2))
         return dq, dk, dv, d_slopes
     return dq, dk, dv

@@ -1,41 +1,39 @@
-"""Tuned flash-attention forward engine (shared by the V2 and MXU rungs).
+"""Flash-attention forward: one Pallas kernel on the Triton route.
 
-This is the TPU-native re-design of the reference's two performance
-kernels at once:
+The reference's two performance kernels (``flash_attention_v2_kernel``,
+``kernels.metal:457-596``, and the half-precision
+``flash_attention_v4_half_kernel``, ``kernels.metal:597-883``) become one
+Triton program per (query block, batch, head): it keeps its query tile
+and the fp32 online-softmax state in registers and loops over KV blocks
+(FlashAttention-2, Algorithm 1).  Triton pipelines the K/V loads across
+loop steps (``num_stages``), which is what the reference's ping-pong
+K/V staging did by hand.  Softmax statistics are fp32 whatever the
+input dtype, like the reference's fp32 m/l registers inside its fp16
+kernels (``kernels.metal:633-638``).
 
-* ``flash_attention_v2_kernel`` (``kernels.metal:457-596``) — its defining
-  tricks are 128-bit vectorized loads and ping-pong double-buffered K/V
-  staging with prefetch-next-while-compute-current.  On TPU, Pallas's grid
-  pipeline already double-buffers every ``BlockSpec`` HBM->VMEM DMA, and
-  the compiler vectorizes loads onto the (8, 128) native lanes — so the V2
-  capability is expressed here as *two-level KV tiling*: an outer
-  ``block_k_major`` grid axis sizing the pipelined DMAs, and an inner
-  statically-unrolled ``block_k`` loop sizing the live score tile, tuned
-  exactly like the reference's 16x16-vs-32x32 occupancy study
-  (``README.md:25-28``).
+Every feature the op exposes is a static specialisation of the same
+body:
 
-* ``flash_attention_v4_half_kernel`` (``kernels.metal:597-883``) — half
-  precision matrix-unit compute, batch/head grid axes with strides
-  (``kernels.metal:609-630``), causal whole-block skip (``kernels.metal:
-  682``) plus fine-grained masking (``kernels.metal:737-754``), and a
-  logsumexp output for the backward pass (``kernels.metal:861-864``).
-  On TPU: bf16/fp16 inputs feed the MXU via ``dot_general`` with fp32
-  accumulation; the online rescale is a plain multiplicative correction on
-  the fp32 VMEM accumulator (the idiomatic replacement for both V3's
-  Spill-Scale-Reload and V4's diagonal-correction matmul — TPU accumulators
-  are addressable, so no spill or diag-matmul is needed); causal skip
-  prunes whole ``block_k_major`` grid steps.
+* causal masking with a per-batch, possibly traced, query offset (query
+  row ``r`` of batch ``b`` sees keys ``c <= r // pos_div + q_offset[b]``);
+  blocks above the diagonal, and below a sliding window, are skipped by
+  the loop bounds, so work scales with the visible area;
+* ``window`` with ``sinks`` (the first ``sinks`` keys stay visible);
+* packed-sequence segment ids;
+* position-space masking for rolling caches (``kv_positions``);
+* tanh ``softcap`` and ALiBi slopes between QK^T and masking;
+* in-kernel attention dropout from the counter-based hash in
+  ``_common.dropout_keep``, bit-identical to the oracle's mask;
+* an 8-bit K/V load path (int8 or fp8 with per-token scales ``[B, H,
+  N]``): the scales fold into the score columns and the probabilities,
+  so the 8-bit tiles are only converted, never rescaled;
+* a paged KV pool, where each loop step loads its own page id from the
+  page table (there is no scalar prefetch on the GPU);
+* ``pos_div``: rows per position, for the GQA decode head-fold
+  (``ops.gqa_decode_attention`` packs a KV head's query heads into
+  adjacent rows so the cache is read once per KV head).
 
-Softmax statistics are always fp32 regardless of input dtype, matching the
-reference's fp32 m/l registers inside its fp16 kernels
-(``kernels.metal:633-638``).
-
-Causal masking supports a **q-row offset**: query row ``r`` attends to key
-columns ``c <= r + q_offset``.  The offset defaults to ``n_kv - n_q``
-(end-aligned diagonals — the decode convention) and may be a *traced*
-scalar, which is what ring/sequence-parallel attention needs (the shard
-index is only known inside ``shard_map``).  The offset rides in SMEM as a
-scalar input.
+The LSE output is ``[B, H, N_q]`` fp32 (natural log).
 """
 
 from __future__ import annotations
@@ -47,609 +45,207 @@ from typing import Optional, Tuple, Union
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-from ..config import (
-    DEFAULT_MASK_VALUE,
-    NUM_LANES,
-    NUM_SUBLANES,
-    BlockSizes,
-    default_scale,
-)
-from ._common import dropout_keep, mxu_dot_general, pack_dropout_seed
+from ..config import BlockSizes, default_scale
+from ._common import dropout_keep, pack_dropout_seed, pallas_interpret
 
-# Softmax in base-2: exp(x) = 2^(x*log2(e)).  log2(e) is folded into the
-# one-off Q scaling, so every per-score transcendental is a raw ``exp2`` —
-# one VPU multiply pass over the (block_q, block_k) score tile cheaper than
-# ``exp`` (measured +6% end-to-end at B16 H8 N2048 D64 on v5e).  The LSE
-# output stays in natural log: lse = m2*ln2 + log(l).
 _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
 
-# Lagged-base online softmax: the multi-block path exponentiates against
-# the PREVIOUS block's base instead of this block's max, so exp2 starts
-# as soon as scores exist and the max-reduce overlaps the P.V matmul
-# (any base is algebraically valid — the max is only overflow protection;
-# the state is rebased to max(base, max(s)) after the matmul).  Measured
-# +13% at B16 H8 N2048 and +17% at N=16K causal on v5e.  The exponent is
-# clamped so a block whose scores exceed the running base by more than
-# _EXP2_CLAMP (in log2 units, ~66 nats) saturates instead of producing
-# inf; the clamp costs nothing measurable.
-_EXP2_CLAMP = 96.0
 
-# One-time warning flag for autotune-cache lookup failures.
-_AUTOTUNE_WARNED = False
+def pad_dim(n: int) -> int:
+    """Head dims run as the next power of two (at least 16): Triton
+    tensors are powers of two and its dot needs 16 columns."""
+    return max(16, 1 << (n - 1).bit_length())
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _pad_to(x: jax.Array, axis: int, size: int, value=0) -> jax.Array:
+    if x.shape[axis] == size:
+        return x
+    widths = [(0, 0)] * x.ndim
+    widths[axis] = (0, size - x.shape[axis])
+    return jnp.pad(x, widths, constant_values=value)
+
+
+def dot_precision(dtype) -> Optional[jax.lax.Precision]:
+    """fp32 operands take full-precision fp32 dots: left at the default,
+    Triton would run them in TF32, which keeps ~3 decimal digits and
+    cannot hold the 1e-3 fp32 tolerance.  Half and 8-bit operands run
+    on the tensor cores with fp32 accumulation."""
+    return jax.lax.Precision.HIGHEST if dtype == jnp.float32 else None
+
+
+def launch_params(block_rows: int, head_dim: int):
+    """Warps and pipeline stages for a tile of ``block_rows`` x head dim."""
+    warps = 8 if block_rows >= 128 and head_dim >= 128 else 4
+    return plt.CompilerParams(
+        num_warps=warps, num_stages=2 if head_dim > 128 else 3
+    )
+
+
+def causal_kv_range(i, off, *, block_q, block_k, num_kv_blocks, pos_div,
+                    window, sinks):
+    """KV block ranges a causal query block must visit.
+
+    Returns ``(sink_hi, lo, hi)``: blocks ``[0, sink_hi)`` hold sink
+    keys that sit below the window, and ``[lo, hi)`` the diagonal and
+    the window.  Everything else is fully masked and never loaded.
+    """
+    last_pos = ((i + 1) * block_q - 1) // pos_div + off
+    hi = jnp.clip((last_pos + block_k) // block_k, 0, num_kv_blocks)
+    if window is None:
+        return 0, 0, hi
+    first_pos = (i * block_q) // pos_div + off - window + 1
+    lo = jnp.clip(jnp.maximum(first_pos, 0) // block_k, 0, hi)
+    sink_hi = 0
+    if sinks:
+        sink_hi = jnp.minimum((sinks + block_k - 1) // block_k, lo)
+    return sink_hi, lo, hi
 
 
 def _fwd_kernel(
-    off_ref,
-    seed_ref,
-    q_ref,
-    k_ref,
-    v_ref,
-    qseg_ref,
-    kvseg_ref,
-    kvpos_ref,
-    slopes_ref,
-    o_ref,
-    lse_ref,
-    m_scratch,
-    l_scratch,
-    acc_scratch,
-    *,
+    *refs,
+    names: Tuple[str, ...],
     sm_scale: float,
     causal: bool,
-    block_q: int,
-    block_k_major: int,
-    block_k: int,
-    num_kv_major: int,
-    save_lse: bool,
-    lazy_softmax: bool,
     window,
-    sinks,
+    sinks: int,
     softcap,
-    dropout_rate: float = 0.0,
-    dropout_heads=None,
-    pos_div: int = 1,
+    dropout_rate: float,
+    dropout_heads,
+    pos_div: int,
+    n_kv: int,
+    block_q: int,
+    block_k: int,
+    num_kv_blocks: int,
+    num_heads: int,
 ):
-    # ``pos_div``: rows-per-position — row r sits at logical position
-    # r // pos_div.  The GQA decode head-fold (ops.gqa_decode_attention)
-    # packs the ``group`` q-heads sharing a KV head into adjacent rows of
-    # one tile, so the KV stream is read ONCE per kv-head instead of once
-    # per q-head (bandwidth-bound decode reads group-x less HBM) and the
-    # QK^T matmul gets real sublane tiles instead of single rows.
-    q_idx = pl.program_id(2)
-    kv_major = pl.program_id(3)
-    # One KV tile covers the whole sequence: no online statistics needed —
-    # a direct two-pass softmax saves every scratch read-modify-write.
-    single_block = num_kv_major == 1 and block_k_major == block_k
+    r = dict(zip(names, refs))
+    i = pl.program_id(0)
+    b = pl.program_id(1)
+    h = pl.program_id(2)
+    q = r["q"][...]
+    prec = dot_precision(q.dtype)
+    scale2 = sm_scale * _LOG2E
 
-    if causal or kvpos_ref is not None or slopes_ref is not None:
-        q_offset = off_ref[pl.program_id(0)]
-    if slopes_ref is not None:
-        # Scalar-prefetch (SMEM) [H] vector: a true scalar read — Mosaic
-        # cannot broadcast a (1, 1) VMEM slice into both sublanes and
-        # lanes, but scalar*vector is native.  Read at kernel top level:
-        # program_id inside nested loop bodies is not substituted by the
-        # CPU interpreter.
-        slope2 = slopes_ref[pl.program_id(1)] * _LOG2E
+    rows = i * block_q + jnp.arange(block_q, dtype=jnp.int32)
+    off = r["off"][b] if "off" in r else 0
+    row_pos = (rows // pos_div if pos_div != 1 else rows) + off
+    row_pos = row_pos[:, None]
+    if "qseg" in r:
+        qseg = r["qseg"][...][:, None]
+    if "slopes" in r:
+        slope2 = r["slopes"][h] * _LOG2E
+    if dropout_rate:
+        seed = [r["seed"][t] for t in range(5)]
+        bh_mul = dropout_heads if dropout_heads is not None else num_heads
+        drop_bh = (b + seed[3]) * bh_mul + (h + seed[4])
+        drop_rows = (seed[1] + rows)[:, None]
 
-    def _transform(s, start):
-        # Score transforms applied between the QK^T matmul and masking.
-        # The score tile lives in log2 units (sm_scale * log2(e) is folded
-        # into Q), so both transforms are rebased by _LOG2E.
+    def body(j, carry):
+        acc, m_prev, l_prev = carry
+        start = j * block_k
+        cols = start + jnp.arange(block_k, dtype=jnp.int32)
+        if "table" in r:
+            page = r["table"][j]
+            k = r["k"][page, :, :]
+            v = r["v"][page, :, :]
+        else:
+            k = r["k"][pl.ds(start, block_k), :]
+            v = r["v"][pl.ds(start, block_k), :]
+        if k.dtype != q.dtype:
+            k = k.astype(q.dtype)
+            v = v.astype(q.dtype)
+        s = pl.dot(q, k, trans_b=True, precision=prec)
+        if "ks" in r:
+            if "table" in r:
+                ks, vs = r["ks"][page, :], r["vs"][page, :]
+            else:
+                ks = r["ks"][pl.ds(start, block_k)]
+                vs = r["vs"][pl.ds(start, block_k)]
+            s = s * (ks * scale2)[None, :]
+        else:
+            s = s * scale2
         if softcap is not None:
-            # Gemma-2-style tanh logit cap on the *scaled natural* score:
-            # cap*tanh(s_nat/cap) == c2*tanh(s2/c2) with c2 = cap*log2(e).
             c2 = softcap * _LOG2E
             s = c2 * jnp.tanh(s * (1.0 / c2))
-        if slopes_ref is not None:
-            # ALiBi (Press et al.): additive bias slope_h*(col - row) where
-            # row carries the causal q_offset; bias <= 0 for visible keys.
-            # (1, 1) slice, not a scalar extract — broadcasts on the VPU
-            # without a vector->scalar move.
-            rowpos = (
-                jax.lax.broadcasted_iota(jnp.int32, (s.shape[0], 1), 0)
-                + q_idx * block_q
-                + q_offset
-            )
-            if kvpos_ref is not None:
-                # Rolling caches: distance in position space (slots whose
-                # position is -1 are masked out right after this).
-                colpos = kvpos_ref[0, :1, start : start + s.shape[1]]
-            else:
-                colpos = (
-                    jax.lax.broadcasted_iota(jnp.int32, (1, s.shape[1]), 1)
-                    + kv_major * block_k_major
-                    + start
-                )
-            dist = (colpos - rowpos).astype(jnp.float32)
-            s = s + slope2 * dist
-        return s
+        col_pos = cols[None, :]
+        if "kvpos" in r:
+            col_pos = r["kvpos"][pl.ds(start, block_k)][None, :]
+        if "slopes" in r:
+            s = s + slope2 * (col_pos - row_pos).astype(jnp.float32)
 
-    def _mask(s, start):
-        # Unconditional elementwise mask on running blocks: measured
-        # faster than a lax.cond-guarded mask on straddling blocks
-        # only (the cond breaks Mosaic's MXU/VPU overlap), and the
-        # whole-block skip already prunes the above-diagonal majors
-        # (``kernels.metal:682`` analog).
         visible = None
-        if kvpos_ref is not None:
-            # Position-space masking (rolling/wrapped KV caches): each KV
-            # slot carries the global position it currently holds (-1 ==
-            # never written); causality and the window apply to those
-            # positions, not to slot indices.
-            rowpos = (
-                jax.lax.broadcasted_iota(jnp.int32, (s.shape[0], 1), 0)
-                + q_idx * block_q
-                + q_offset
-            )
-            kvpos = kvpos_ref[0, :1, start : start + s.shape[1]]
-            visible = (kvpos <= rowpos) & (kvpos >= 0)
-            if window is not None:
-                keep = kvpos > rowpos - window
-                if sinks:
-                    # Attention sinks stay visible beyond the window.
-                    keep |= kvpos < sinks
-                visible &= keep
+        if "kvpos" in r:
+            visible = (col_pos <= row_pos) & (col_pos >= 0)
         elif causal:
-            # Narrow iotas: (bq, 1) rows vs (1, bk) cols, with the scalar
-            # offsets folded into the SMALL operands before the broadcast
-            # compare — the full-tile work is one compare + one select
-            # instead of two materialized (bq, bk) iota+add chains (the
-            # mask VPU chain feeds the softmax's critical path, so every
-            # saved pass counts on causal shapes).
-            row = (
-                jax.lax.broadcasted_iota(jnp.int32, (s.shape[0], 1), 0)
-                + q_idx * block_q
-            )
-            if pos_div != 1:
-                row = row // pos_div
-            row = row + q_offset
-            col = (
-                jax.lax.broadcasted_iota(jnp.int32, (1, s.shape[1]), 1)
-                + kv_major * block_k_major
-                + start
-            )
-            visible = col <= row
-            if window is not None:
-                # Sliding window: only the last ``window`` keys count.
-                keep = col > row - window
-                if sinks:
-                    keep |= col < sinks
-                visible &= keep
-        if qseg_ref is not None:
-            # Packed sequences: equal segment ids only.  Layouts follow
-            # the lane-replicated convention: q ids [block_q, LANES],
-            # kv ids [SUBLANES, block_k_major].
-            qs = jnp.tile(qseg_ref[0], (1, s.shape[1] // NUM_LANES))
-            ks = kvseg_ref[0, :1, start : start + s.shape[1]]
-            seg = qs == ks
-            visible = seg if visible is None else (visible & seg)
-        if visible is None:
-            return s
-        return jnp.where(visible, s, DEFAULT_MASK_VALUE)
-
-    if dropout_rate:
-        # Computed at kernel top level: program_id is not available inside
-        # pl.when bodies under interpret mode.  seed_ref[3]/[4] are the
-        # batch/head shard offsets and ``dropout_heads`` the GLOBAL head
-        # count (defaults: 0 / local heads), so dp/tp shards hash the
-        # global (b, h) stream — see ``_common.pack_dropout_seed``.
-        _bh_mul = (
-            dropout_heads
-            if dropout_heads is not None
-            else pl.num_programs(1)
-        )
-        dropout_bh = (pl.program_id(0) + seed_ref[3]) * _bh_mul + (
-            pl.program_id(1) + seed_ref[4]
-        )
-
-    def _keepf(shape, start):
-        # Attention-dropout keep mask {0, 1/(1-rate)} regenerated from the
-        # ABSOLUTE score coordinates (``kernels._common.dropout_keep``):
-        # the backward kernels rebuild the identical mask from their own
-        # grid indices, so no mask tensor ever touches HBM and block
-        # shapes need not match across kernels (FA-2's in-kernel dropout,
-        # TPU-style).  Tensor-index space, deliberately independent of
-        # q_offset/position maps; sequence-sharded callers (ring/allgather
-        # sp) pass seed_ref[1]/[2] row/col offsets so shard-local indices
-        # hash at their GLOBAL coordinates.
-        rows = seed_ref[1] + q_idx * block_q + jax.lax.broadcasted_iota(
-            jnp.int32, (shape[0], 1), 0
-        )
-        cols = (
-            seed_ref[2]
-            + kv_major * block_k_major
-            + start
-            + jax.lax.broadcasted_iota(jnp.int32, (1, shape[1]), 1)
-        )
-        return dropout_keep(seed_ref[0], dropout_bh, rows, cols, dropout_rate)
-
-    def _scaled_q():
-        # Fold sm_scale AND log2(e) into Q once per tile: (bq, D) elements
-        # instead of a (bq, bk) pass over every score sub-tile, and the
-        # softmax becomes a raw exp2.  Rounding of the fold is well inside
-        # the input dtype's own error (bf16 rung measured 2.9e-3 vs the
-        # 1e-2 tolerance).
-        q = q_ref[0, 0]
-        return (q.astype(jnp.float32) * (sm_scale * _LOG2E)).astype(q.dtype)
-
-    if single_block:
-
-        def _single():
-            q = _scaled_q()
-            k = k_ref[0, 0]
-            v = v_ref[0, 0]
-            s = mxu_dot_general(q, k, (((1,), (1,)), ((), ())))
-            if softcap is not None or slopes_ref is not None:
-                s = _transform(s, 0)
-            if causal or qseg_ref is not None or kvpos_ref is not None:
-                s = _mask(s, 0)
-            m = jnp.max(s, axis=-1, keepdims=True)
-            p = jnp.exp2(s - m)
-            l = jnp.sum(p, axis=-1, keepdims=True)
-            l_inv = jnp.where(l == 0.0, 1.0, 1.0 / l)
-            pd = p * _keepf(p.shape, 0) if dropout_rate else p
-            o = mxu_dot_general(pd.astype(v.dtype), v, (((1,), (0,)), ((), ())))
-            o_ref[0, 0, :, :] = (o * l_inv).astype(o_ref.dtype)
-            if save_lse:
-                lse = jnp.where(
-                    l == 0.0,
-                    -jnp.inf,
-                    m * _LN2 + jnp.log(jnp.where(l == 0.0, 1.0, l)),
-                )
-                lse_ref[0, 0, :, :] = jnp.broadcast_to(lse, lse_ref.shape[2:])
-
-        _single()
-        return
-
-    @pl.when(kv_major == 0)
-    def _init():
-        if lazy_softmax:
-            # Base starts at 0 (a finite base the first block can
-            # exponentiate against with no reduce); any base is
-            # algebraically valid, and the base only grows from here.
-            m_scratch[...] = jnp.zeros_like(m_scratch)
-        else:
-            m_scratch[...] = jnp.full_like(m_scratch, -jnp.inf)
-        l_scratch[...] = jnp.zeros_like(l_scratch)
-        acc_scratch[...] = jnp.zeros_like(acc_scratch)
-
-    if causal and kvpos_ref is None:
-        # Whole-major-block skip: run only if the block's first column can
-        # be visible to the Q tile's last row (``kernels.metal:682`` analog).
-        # (Positional mode runs every block: slot indices carry no order.)
-        should_run = (
-            ((q_idx + 1) * block_q - 1) // pos_div + q_offset
-            >= kv_major * block_k_major
-        )
+            visible = col_pos <= row_pos
         if window is not None:
-            # ...and its last column is inside the first row's window (or
-            # the block holds sink positions).
-            in_window = (
-                (kv_major + 1) * block_k_major - 1
-                >= (q_idx * block_q) // pos_div + q_offset - window + 1
-            )
+            keep = col_pos > row_pos - window
             if sinks:
-                in_window |= kv_major * block_k_major < sinks
-            should_run &= in_window
-    else:
-        should_run = True
+                keep = keep | (col_pos < sinks)
+            visible = visible & keep
+        if "qseg" in r:
+            seg = qseg == r["kvseg"][pl.ds(start, block_k)][None, :]
+            visible = seg if visible is None else visible & seg
+        if n_kv % block_k and "kvpos" not in r:
+            in_range = cols[None, :] < n_kv
+            visible = in_range if visible is None else visible & in_range
+        if visible is not None:
+            s = jnp.where(visible, s, -jnp.inf)
 
-    @pl.when(should_run)
-    def _run():
-        q = _scaled_q()
-        # Inner loop over block_k sub-tiles — statically unrolled, so each
-        # iteration's slice offsets are compile-time constants.
-        for start in range(0, block_k_major, block_k):
-            k = k_ref[0, 0, start : start + block_k, :]
-            v = v_ref[0, 0, start : start + block_k, :]
-
-            s = mxu_dot_general(q, k, (((1,), (1,)), ((), ())))
-
-            if softcap is not None or slopes_ref is not None:
-                s = _transform(s, start)
-            if causal or qseg_ref is not None or kvpos_ref is not None:
-                s = _mask(s, start)
-
-            def _pv(p):
-                # P is cast to the V dtype so P.V rides the MXU at input
-                # precision (analog of the fp16 MMA at ``kernels.metal:
-                # 833-848``); accumulation stays fp32.
-                return mxu_dot_general(p.astype(v.dtype), v, (((1,), (0,)), ((), ())))
-
-            def _lazy():
-                # Lagged-base update: exponentiate against the previous
-                # block's base (no reduce on the critical path -- exp2
-                # starts as soon as scores exist, and the max reduce
-                # overlaps P.V), then rebase the state after the matmul.
-                # The clamp keeps out-of-envelope rows finite; exactness
-                # requires scores not to jump more than _EXP2_CLAMP log2
-                # units above the running base (see flash_attention_fwd).
-                b_prev = m_scratch[...]
-                p = jnp.exp2(jnp.minimum(s - b_prev[:, :1], _EXP2_CLAMP))
-                # Dropout zeroes entries of the P.V accumulation only; l
-                # keeps summing the undropped p, so the final 1/l applies
-                # the dropout to the NORMALIZED probabilities.
-                pv = _pv(p * _keepf(p.shape, start) if dropout_rate else p)
-                m_curr = jnp.max(s, axis=-1, keepdims=True)
-                b_next = jnp.maximum(b_prev, m_curr)
-                alpha = jnp.exp2(b_prev - b_next)
-                l_scratch[...] = (
-                    l_scratch[...] + jnp.sum(p, axis=-1, keepdims=True)
-                ) * alpha
-                acc_scratch[...] = (acc_scratch[...] + pv) * alpha[:, :1]
-                m_scratch[...] = b_next
-
-            def _eager():
-                # Classic online softmax: this block's max joins the base
-                # BEFORE exponentiation.  Exact for arbitrary magnitudes,
-                # but the max reduce serializes S -> P -> P.V.
-                m_prev = m_scratch[...]
-                m_curr = jnp.max(s, axis=-1, keepdims=True)
-                m_next = jnp.maximum(m_prev, m_curr)
-                alpha = jnp.exp2(m_prev - m_next)
-                p = jnp.exp2(s - m_next[:, :1])
-                l_scratch[...] = alpha * l_scratch[...] + jnp.sum(
-                    p, axis=-1, keepdims=True
-                )
-                m_scratch[...] = m_next
-                acc_scratch[...] *= alpha[:, :1]
-                acc_scratch[...] += _pv(
-                    p * _keepf(p.shape, start) if dropout_rate else p
-                )
-
-            # NOTE: no per-step pl.when between the two variants — a
-            # runtime branch inside this body was measured to destroy
-            # Mosaic's MXU/VPU overlap (lazy regressed below eager).
-            if lazy_softmax:
-                _lazy()
-            else:
-                _eager()
-
-    @pl.when(kv_major == num_kv_major - 1)
-    def _store():
-        l = l_scratch[...][:, :1]
-        l_inv = jnp.where(l == 0.0, 1.0, 1.0 / l)
-        o_ref[0, 0, :, :] = (acc_scratch[...] * l_inv).astype(o_ref.dtype)
-        if save_lse:
-            # L = m + log(l) per query row (``kernels.metal:861-864``).
-            # Fully-masked rows (l == 0) get -inf so downstream merges
-            # weight them to zero.
-            m = m_scratch[...][:, :1]
-            lse = jnp.where(
-                l == 0.0,
-                -jnp.inf,
-                m * _LN2 + jnp.log(jnp.where(l == 0.0, 1.0, l)),
+        m_new = jnp.maximum(m_prev, jnp.max(s, axis=1))
+        m_safe = jnp.where(m_new == -jnp.inf, 0.0, m_new)
+        alpha = jnp.exp2(m_prev - m_safe)
+        p = jnp.exp2(s - m_safe[:, None])
+        l_new = l_prev * alpha + jnp.sum(p, axis=1)
+        if dropout_rate:
+            # Dropout zeroes entries of the P.V product only; l sums the
+            # undropped p, so 1/l normalises before the mask applies.
+            p = p * dropout_keep(
+                seed[0], drop_bh, drop_rows, (seed[2] + cols)[None, :],
+                dropout_rate,
             )
-            lse_ref[0, 0, :, :] = jnp.broadcast_to(lse, lse_ref.shape[2:])
+        if "ks" in r:
+            p = p * vs[None, :]
+        pv = pl.dot(p.astype(v.dtype), v, precision=prec)
+        return acc * alpha[:, None] + pv, m_new, l_new
 
-
-def _fwd_kernel_lean(
-    q_ref,
-    k_ref,
-    v_ref,
-    o_ref,
-    lse_ref,
-    *,
-    sm_scale: float,
-    causal: bool,
-    block_q: int,
-    q_offset: int,
-    save_lse: bool,
-    fold: int = 1,
-    pv_t: bool = False,
-):
-    """Single-KV-block fast path with a *static* causal offset.
-
-    Drops the scalar-prefetch SMEM DMA and the 4th grid dimension of the
-    general kernel — measured ~0.5-1us of fixed overhead, which dominates
-    at reference-sweep sizes N<=1024 (the regime where the reference's own
-    kernels were dispatch-bound, ``README.md`` N=128 rows).
-
-    ``fold``: batch elements per grid step.  Small-N batched sweeps
-    (B=128 at N=128) otherwise pay the per-grid-step overhead once per
-    batch element; folding ``fold`` independent (N, D) attention problems
-    into one statically-unrolled body amortizes that overhead and gives
-    Mosaic independent MXU/VPU chains to interleave.  Same FLOPs, same
-    outputs — only the grid packing changes.
-
-    ``pv_t``: transposed-output PV (round 5) — o^T = V^T P^T gives the
-    PV matmul a [D, block_q]-wide output instead of the 39-49%-of-peak
-    D-narrow one (experiments/mxu_rates.py); the wrapper transposes
-    once outside.
-    """
-    for i in range(fold):
-        q = q_ref[i, 0]
-        q = (q.astype(jnp.float32) * (sm_scale * _LOG2E)).astype(q.dtype)
-        k = k_ref[i, 0]
-        v = v_ref[i, 0]
-        s = mxu_dot_general(q, k, (((1,), (1,)), ((), ())))
-        if causal:
-            row = (
-                jax.lax.broadcasted_iota(jnp.int32, (s.shape[0], 1), 0)
-                + pl.program_id(2) * block_q
-                + q_offset
-            )
-            col = jax.lax.broadcasted_iota(jnp.int32, (1, s.shape[1]), 1)
-            s = jnp.where(col <= row, s, DEFAULT_MASK_VALUE)
-        m = jnp.max(s, axis=-1, keepdims=True)
-        p = jnp.exp2(s - m)
-        l = jnp.sum(p, axis=-1, keepdims=True)
-        l_inv = jnp.where(l == 0.0, 1.0, 1.0 / l)
-        if pv_t:
-            ot = mxu_dot_general(
-                v, p.astype(v.dtype), (((0,), (1,)), ((), ()))
-            )
-            o_ref[i, 0, :, :] = (ot * l_inv[:, 0][None, :]).astype(
-                o_ref.dtype
-            )
-        else:
-            o = mxu_dot_general(
-                p.astype(v.dtype), v, (((1,), (0,)), ((), ()))
-            )
-            o_ref[i, 0, :, :] = (o * l_inv).astype(o_ref.dtype)
-        if save_lse:
-            lse = jnp.where(
-                l == 0.0,
-                -jnp.inf,
-                m * _LN2 + jnp.log(jnp.where(l == 0.0, 1.0, l)),
-            )
-            lse_ref[i, 0, :, :] = jnp.broadcast_to(lse, lse_ref.shape[2:])
-
-
-def _lean_batch_fold(batch: int, n_q: int, n_kv: int) -> int:
-    """Batch elements per lean-path grid step.
-
-    Fold until each step carries ~``_FOLD_ROWS`` total KV rows of work —
-    enough to amortize the ~0.3-0.4us per-grid-step overhead that
-    dominates small-N batched shapes (the N=128 B=128 sweep point spent
-    ~75% of its time on step overhead before folding).  Folding is a pure
-    grid repack: identical FLOPs and outputs.
-    """
-    fold = 1
-    while (
-        batch % (fold * 2) == 0
-        and fold * 2 * max(n_q, n_kv) <= _FOLD_ROWS
-    ):
-        fold *= 2
-    return fold
-
-
-# Tuned on v5e (see docs/optimization_narrative.md): 1024 rows/step was
-# the paired-measurement winner at N=128/256; 2048 regressed (VMEM
-# pressure narrows the pipeline) and 512 left step overhead on the table.
-_FOLD_ROWS = 1024
-
-
-def _fwd_lean(
-    q,
-    k,
-    v,
-    *,
-    sm_scale,
-    causal,
-    q_offset,
-    block_q,
-    save_lse,
-    kv_group,
-    interpret,
-    pv_t=False,
-):
-    batch, heads, n_q, head_dim = q.shape
-    n_kv = k.shape[2]
-    fold = 1
-    if block_q == n_q and kv_group == 1:
-        # Whole sequence per step and no KV dedup across q-heads to
-        # preserve: fold several batch elements into each grid step.
-        fold = _lean_batch_fold(batch, n_q, n_kv)
-    kernel = functools.partial(
-        _fwd_kernel_lean,
-        sm_scale=sm_scale,
-        causal=causal,
-        block_q=block_q,
-        q_offset=q_offset,
-        save_lse=save_lse,
-        fold=fold,
-        pv_t=pv_t,
+    d = q.shape[-1]
+    carry = (
+        jnp.zeros((block_q, d), jnp.float32),
+        jnp.full((block_q,), -jnp.inf, jnp.float32),
+        jnp.zeros((block_q,), jnp.float32),
     )
-    if not save_lse:
-        bound = kernel
-
-        def kernel(q_ref, k_ref, v_ref, o_ref):  # noqa: F811
-            return bound(q_ref, k_ref, v_ref, o_ref, None)
-
-    if pv_t:
-        out_shapes = [
-            jax.ShapeDtypeStruct((batch, heads, head_dim, n_q), q.dtype)
-        ]
-        out_specs = [
-            pl.BlockSpec(
-                (fold, 1, head_dim, block_q), lambda b, h, i: (b, h, 0, i)
-            )
-        ]
+    if causal and "kvpos" not in r:
+        sink_hi, lo, hi = causal_kv_range(
+            i, off, block_q=block_q, block_k=block_k,
+            num_kv_blocks=num_kv_blocks, pos_div=pos_div, window=window,
+            sinks=sinks,
+        )
+        if sinks and window is not None:
+            carry = jax.lax.fori_loop(0, sink_hi, body, carry)
+        acc, m, l = jax.lax.fori_loop(lo, hi, body, carry)
     else:
-        out_shapes = [jax.ShapeDtypeStruct(q.shape, q.dtype)]
-        out_specs = [
-            pl.BlockSpec(
-                (fold, 1, block_q, head_dim), lambda b, h, i: (b, h, i, 0)
-            )
-        ]
-    if save_lse:
-        out_shapes.append(
-            jax.ShapeDtypeStruct((batch, heads, n_q, NUM_LANES), jnp.float32)
-        )
-        out_specs.append(
-            pl.BlockSpec(
-                (fold, 1, block_q, NUM_LANES), lambda b, h, i: (b, h, i, 0)
-            )
-        )
-    flops = 4 * batch * heads * n_q * n_kv * head_dim
-    transcendentals = batch * heads * n_q * n_kv
-    if causal:
-        flops //= 2
-        transcendentals //= 2
-    results = pl.pallas_call(
-        kernel,
-        out_shape=out_shapes,
-        grid=(batch // fold, heads, n_q // block_q),
-        in_specs=[
-            pl.BlockSpec(
-                (fold, 1, block_q, head_dim), lambda b, h, i: (b, h, i, 0)
-            ),
-            pl.BlockSpec(
-                (fold, 1, n_kv, head_dim),
-                lambda b, h, i: (b, h // kv_group, 0, 0),
-            ),
-            pl.BlockSpec(
-                (fold, 1, n_kv, head_dim),
-                lambda b, h, i: (b, h // kv_group, 0, 0),
-            ),
-        ],
-        out_specs=out_specs,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel"),
-            vmem_limit_bytes=32 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=flops,
-            bytes_accessed=(q.size + k.size + v.size + q.size) * q.dtype.itemsize,
-            transcendentals=transcendentals,
-        ),
-        interpret=interpret,
-    )(q, k, v)
-    o = results[0]
-    if pv_t:
-        o = o.swapaxes(-1, -2)
-    if save_lse:
-        return o, results[1]
-    return o
+        acc, m, l = jax.lax.fori_loop(0, num_kv_blocks, body, carry)
+
+    empty = l == 0.0
+    l_safe = jnp.where(empty, 1.0, l)
+    r["o"][...] = (acc / l_safe[:, None]).astype(r["o"].dtype)
+    if "lse" in r:
+        r["lse"][...] = jnp.where(empty, -jnp.inf, (m + jnp.log2(l_safe)) * _LN2)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "sm_scale",
-        "causal",
-        "window",
-        "sinks",
-        "block_sizes",
-        "save_lse",
-        "lazy_softmax",
-        "softcap",
-        "dropout_rate",
-        "dropout_heads",
-        "pos_div",
-        "interpret",
-    ),
-    # segment_ids, dropout_seed and dropout_offsets are traced arguments
-)
-def flash_attention_fwd(
+def attention_fwd(
     q: jax.Array,
     k: jax.Array,
     v: jax.Array,
-    q_offset: Optional[jax.Array] = None,
+    q_offset=None,
     *,
     sm_scale: Optional[float] = None,
     causal: bool = False,
@@ -657,9 +253,11 @@ def flash_attention_fwd(
     sinks: int = 0,
     segment_ids=None,
     kv_positions: Optional[jax.Array] = None,
+    k_scale: Optional[jax.Array] = None,
+    v_scale: Optional[jax.Array] = None,
+    page_table: Optional[jax.Array] = None,
     block_sizes: Optional[BlockSizes] = None,
     save_lse: bool = False,
-    lazy_softmax: bool = True,
     softcap: Optional[float] = None,
     alibi_slopes: Optional[jax.Array] = None,
     dropout_rate: float = 0.0,
@@ -667,238 +265,33 @@ def flash_attention_fwd(
     dropout_offsets=None,
     dropout_heads: Optional[int] = None,
     pos_div: int = 1,
-    interpret: bool = False,
-) -> Union[jax.Array, Tuple[jax.Array, jax.Array]]:
-    """Flash-attention forward over ``[B, H, N, D]`` inputs.
+):
+    """The shared forward wrapper (dense, 8-bit and paged callers).
 
-    ``pos_div``: rows-per-position (default 1).  Row ``r`` of the query
-    masks as logical position ``r // pos_div`` — the GQA decode head-fold
-    (``ops.gqa_decode_attention``) packs each KV head's ``group`` query
-    heads into adjacent rows so the KV stream is read once per KV head.
-    Requires ``causal``; not composable with alibi/segment_ids/
-    kv_positions/dropout (serving-path feature).
-
-    ``dropout_rate`` / ``dropout_seed``: in-kernel attention-probability
-    dropout (FA-2 capability; the reference has no dropout).  The keep
-    mask is a counter-based hash of the int32 seed and the absolute
-    (batch*head, row, col) coordinates — never materialized in HBM, and
-    bit-identical in the backward kernels and the jnp oracle.  The seed
-    is a traced scalar (new seed every train step, no recompile).
-    Training-path only: not composable with ``kv_positions``.
-
-    ``dropout_offsets`` / ``dropout_heads``: shard->global coordinate
-    translation for sharded callers.  ``dropout_offsets`` is a 4-tuple
-    ``(row, col, batch, head)`` of int32 scalars (traced OK) added to the
-    kernel's local indices before hashing; ``dropout_heads`` is the
-    static GLOBAL head count used as the (b, h) stream multiplier.  With
-    the right offsets, ring/allgather sequence shards, dp batch shards,
-    and tp head shards all regenerate the exact single-device mask
-    (sharding-invariant dropout; see ``parallel.ring``).
-
-    ``segment_ids``: optional ``config.SegmentIds`` (``q: [B, N_q]``,
-    ``kv: [B, N_kv]`` int32) for packed sequences — tokens attend only
-    within equal ids; composes with causal/window masking.
-
-    ``kv_positions``: optional ``[B, N_kv]`` int32 — the global position
-    each KV slot currently holds (-1 == never written).  Switches
-    causal/window masking from slot-index space to position space, which
-    is what a rolling (wrapped) KV cache needs; requires ``causal`` and
-    disables index-space block skipping.  Forward-only (serving path).
-
-    ``q_offset``: optional int32 scalar or per-batch ``[B]`` vector —
-    query row ``r`` of batch ``b`` may attend to key columns
-    ``c <= r + q_offset[b]`` when ``causal=True``.  Defaults to
-    ``n_kv - n_q`` (end-aligned).  May be traced (e.g. derived from
-    ``jax.lax.axis_index`` under ``shard_map``, or from per-sequence KV
-    lengths in continuous-batching decode).
-
-    ``window``: with ``causal``, each query row attends only to the last
-    ``window`` visible keys (sliding-window / local attention — the
-    long-context serving pattern).  Out-of-window KV blocks are skipped
-    AND their DMAs elided, so compute and bandwidth scale with
-    ``window``, not ``n_kv``.
-
-    ``softcap``: optional tanh logit cap (Gemma-2 style) applied to the
-    *scaled* scores before ALiBi/masking: ``s = softcap*tanh(s/softcap)``.
-    Bounds every score to ``(-softcap, +softcap)``, which also guarantees
-    the lazy-softmax envelope.
-
-    ``alibi_slopes``: optional ``[H]`` fp32 per-q-head ALiBi slopes adding
-    the linear position bias ``slope * (col - row - q_offset)`` after the
-    cap ("Train Short, Test Long", Press et al. — a position scheme the
-    reference explicitly scoped out, ``project_narrative.md:50-53``).
-    Composes with causal/window/GQA and position-space (rolling-cache)
-    masking.
-
-    ``lazy_softmax`` (default True): exponentiate each KV block against
-    the previous block's base (starting from base 0) so the max-reduce
-    overlaps the P.V matmul instead of serializing before the exp
-    (+13-17% measured on v5e).  Exact whenever scaled scores stay in
-    roughly ``[-87, +66]`` nats — guaranteed for
-    ``|q.k * sm_scale| <= 33``, far beyond softmax saturation.  Outside
-    the envelope the kernel stays finite: blocks jumping > ~66 nats
-    above the running base saturate, and rows whose max score is below
-    ~-87 nats flush to (o=0, lse=-inf) like fully-masked rows.  Set
-    False for the classic eager online softmax, exact at any magnitude.
-
-    Returns ``o`` or ``(o, lse)`` where ``lse`` has shape
-    ``[B, H, N_q, NUM_LANES]`` with the per-row logsumexp replicated across
-    the 128 lanes — the tile-aligned layout the backward kernels consume
-    directly (the same layout jax's own TPU flash attention uses for its
-    l/m residuals).  Slice ``lse[..., 0]`` for the row-indexed view.
+    ``k``/``v`` are ``[B, H_kv, N_kv, D]``, or with ``page_table`` a pool
+    ``[P, H_kv, page_size, D]`` read through ``page_table [B, pages]``.
+    ``k_scale``/``v_scale`` are per-token scales shaped like ``k`` without
+    its last dim.  Returns ``o`` or ``(o, lse)``.
     """
-    if q.dtype == jnp.float16:
-        # Mosaic has no f16 datapath on TPU: fp16 is a *storage* dtype
-        # here (like the int8/fp8 KV formats) and compute is fp32.  The
-        # V3-parity contract (5e-3, ``main.mm:375``) is carried by the
-        # fp16 input rounding; softmax stats were fp32 in the reference's
-        # fp16 kernels anyway (``kernels.metal:633-638``).
-        out = flash_attention_fwd(
-            q.astype(jnp.float32),
-            k.astype(jnp.float32),
-            v.astype(jnp.float32),
-            q_offset,
-            sm_scale=sm_scale,
-            causal=causal,
-            window=window,
-            sinks=sinks,
-            segment_ids=segment_ids,
-            kv_positions=kv_positions,
-            block_sizes=block_sizes,
-            save_lse=save_lse,
-            lazy_softmax=lazy_softmax,
-            softcap=softcap,
-            alibi_slopes=alibi_slopes,
-            dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed,
-            dropout_offsets=dropout_offsets,
-            dropout_heads=dropout_heads,
-            pos_div=pos_div,
-            interpret=interpret,
-        )
-        if save_lse:
-            return out[0].astype(jnp.float16), out[1]
-        return out.astype(jnp.float16)
-
     batch, heads, n_q, head_dim = q.shape
-    n_kv = k.shape[2]
     kv_heads = k.shape[1]
     if heads % kv_heads:
         raise ValueError(
             f"q heads ({heads}) must be a multiple of kv heads ({kv_heads})"
         )
-    # Native GQA/MQA: the KV index maps send q-head h to kv-head
-    # h // group; consecutive q-heads of a group reference identical KV
-    # blocks, so their DMAs are elided by the pipeline — no materialized
-    # head broadcast anywhere.
-    kv_group = heads // kv_heads
+    group = heads // kv_heads
+    paged = page_table is not None
+    n_kv = page_table.shape[1] * k.shape[2] if paged else k.shape[2]
     if sm_scale is None:
         sm_scale = default_scale(head_dim)
-    if block_sizes is None:
-        # Consult the autotuner's persisted per-chip decisions first
-        # (harness/autotune.py); heuristic defaults otherwise.
-        try:
-            from ..harness.autotune import lookup as _autotune_lookup
-
-            block_sizes = _autotune_lookup(
-                "fwd", batch, heads, n_q, n_kv, head_dim, causal, q.dtype
-            )
-        except (OSError, KeyError, ValueError, TypeError) as e:
-            # A corrupt/stale autotune_cache.json must not silently change
-            # kernel behavior: warn once, then use the heuristic default.
-            global _AUTOTUNE_WARNED
-            if not _AUTOTUNE_WARNED:
-                _AUTOTUNE_WARNED = True
-                import warnings
-
-                warnings.warn(
-                    f"autotune cache lookup failed ({type(e).__name__}: {e}); "
-                    "falling back to heuristic block sizes"
-                )
-            block_sizes = None
-        # Triangular-kernel routing (kernels/flash_tri.py): the DEFAULT
-        # for plain causal shapes, not a cache perk — round 5 made the
-        # visible-area kernel fire on any untuned shape via
-        # ``tri_heuristic`` (the reference's causal whole-block skip is
-        # unconditional, ``kernels.metal:682``; so is this).  The
-        # autotune cache overrides in either direction: a measured tri
-        # win carries its tuned tiles, a measured grid win (block_sizes
-        # found above) keeps the grid kernel.  Requires a static
-        # q_offset; traced offsets (ring shards, ragged decode) stay on
-        # the general grid kernel.
-        if (
-            causal
-            and not dropout_rate
-            and window is None
-            and segment_ids is None
-            and kv_positions is None
-            and softcap is None
-            and alibi_slopes is None
-            and pos_div == 1
-            and (q_offset is None or isinstance(q_offset, int))
-        ):
-            try:
-                from ..harness.autotune import lookup_fwd_impl
-
-                hit = lookup_fwd_impl(
-                    batch, heads, n_q, n_kv, head_dim, causal, q.dtype
-                )
-            except (OSError, KeyError, ValueError, TypeError):
-                hit = None
-            if hit is not None:
-                tri_blocks = (
-                    hit[1]["block_q"],
-                    hit[1]["block_k"],
-                    hit[1].get("pvt", False),
-                )
-            elif block_sizes is None:
-                from .flash_tri import tri_heuristic
-
-                tri_blocks = tri_heuristic(
-                    batch, heads, n_q, n_kv, head_dim,
-                    n_kv - n_q if q_offset is None else int(q_offset),
-                )
-            else:
-                tri_blocks = None  # measured grid win for this shape
-            if tri_blocks is not None:
-                from .flash_tri import flash_attention_tri
-
-                return flash_attention_tri(
-                    q,
-                    k,
-                    v,
-                    sm_scale=sm_scale,
-                    q_offset=(
-                        None if q_offset is None else int(q_offset)
-                    ),
-                    block_q=tri_blocks[0],
-                    block_k=tri_blocks[1],
-                    pv_transposed=tri_blocks[2],
-                    save_lse=save_lse,
-                    interpret=interpret,
-                )
-        if block_sizes is None:
-            block_sizes = BlockSizes.for_seq_len(n_q, n_kv)
-    block_q = min(block_sizes.block_q, n_q)
-    block_k_major = min(block_sizes.block_k_major, n_kv)
-    block_k = min(block_sizes.block_k, block_k_major)
-    if n_q % block_q or n_kv % block_k_major or block_k_major % block_k:
-        raise ValueError(
-            f"shape ({n_q}, {n_kv}) not divisible by blocks "
-            f"({block_q}, {block_k_major}, {block_k})"
-        )
-    num_kv_major = n_kv // block_k_major
-
     if window is not None:
         if not causal:
             raise ValueError("window requires causal=True")
         window = int(window)
         if window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
-
     if kv_positions is not None and not causal:
         raise ValueError("kv_positions requires causal=True")
-
     if pos_div != 1:
         if pos_div < 1:
             raise ValueError(f"pos_div must be >= 1, got {pos_div}")
@@ -914,13 +307,11 @@ def flash_attention_fwd(
                 "pos_div > 1 (GQA decode head-fold) does not compose with "
                 "kv_positions/segment_ids/alibi/dropout"
             )
-
-    if dropout_rate and not 0.0 < dropout_rate < 1.0:
-        # Checked before the truthiness gates below: a negative rate must
-        # not slip past `rate > 0.0` and hit the kernels' `if rate:`.
-        raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
-    has_dropout = dropout_rate > 0.0
-    if has_dropout:
+    if dropout_rate:
+        if not 0.0 < dropout_rate < 1.0:
+            raise ValueError(
+                f"dropout_rate must be in [0, 1), got {dropout_rate}"
+            )
         if dropout_seed is None:
             raise ValueError("dropout_rate > 0 requires dropout_seed")
         if kv_positions is not None:
@@ -929,257 +320,209 @@ def flash_attention_fwd(
                 "(kv_positions) serving does not support it"
             )
 
-    if (
-        not has_dropout
-        and pos_div == 1
-        and num_kv_major == 1
-        and block_k_major == block_k
-        and window is None
-        and segment_ids is None
-        and kv_positions is None
-        and softcap is None
-        and alibi_slopes is None
-        and (q_offset is None or isinstance(q_offset, int))
-    ):
-        # Whole KV fits one block and the causal offset is static: take the
-        # lean 3-D-grid path (no scalar prefetch, no online statistics).
-        return _fwd_lean(
-            q,
-            k,
-            v,
-            sm_scale=sm_scale,
-            causal=causal,
-            q_offset=n_kv - n_q if q_offset is None else int(q_offset),
-            block_q=block_q,
-            save_lse=save_lse,
-            kv_group=kv_group,
-            interpret=interpret,
-            pv_t=block_sizes.lean_pv_t,
+    bs = (block_sizes or BlockSizes()).resolve(n_q, n_kv, head_dim)
+    block_q = bs.block_q
+    if paged:
+        block_k = k.shape[2]
+        if block_k < 16 or block_k & (block_k - 1):
+            raise ValueError(
+                f"page_size={block_k} must be a power of two >= 16"
+            )
+    else:
+        block_k = bs.block_k
+    n_q_pad = _round_up(n_q, block_q)
+    n_kv_pad = _round_up(n_kv, block_k)
+    dp = pad_dim(head_dim)
+
+    q_p = _pad_to(_pad_to(q, 3, dp), 2, n_q_pad)
+    if paged:
+        k_p, v_p = _pad_to(k, 3, dp), _pad_to(v, 3, dp)
+    else:
+        k_p = _pad_to(_pad_to(k, 3, dp), 2, n_kv_pad)
+        v_p = _pad_to(_pad_to(v, 3, dp), 2, n_kv_pad)
+
+    names, inputs, specs = [], [], []
+
+    def add(name, x, spec):
+        names.append(name)
+        inputs.append(x)
+        specs.append(spec)
+
+    add("q", q_p, pl.BlockSpec((None, None, block_q, dp),
+                               lambda i, b, h: (b, h, i, 0)))
+    if paged:
+        n_pages, _, page, _ = k.shape
+        kv_spec = pl.BlockSpec((n_pages, None, page, dp),
+                               lambda i, b, h: (0, h // group, 0, 0))
+    else:
+        kv_spec = pl.BlockSpec((None, None, n_kv_pad, dp),
+                               lambda i, b, h: (b, h // group, 0, 0))
+    add("k", k_p, kv_spec)
+    add("v", v_p, kv_spec)
+    if k_scale is not None:
+        if paged:
+            sc_spec = pl.BlockSpec((n_pages, None, page),
+                                   lambda i, b, h: (0, h // group, 0))
+            ks, vs = k_scale, v_scale
+        else:
+            sc_spec = pl.BlockSpec((None, None, n_kv_pad),
+                                   lambda i, b, h: (b, h // group, 0))
+            ks = _pad_to(k_scale, 2, n_kv_pad)
+            vs = _pad_to(v_scale, 2, n_kv_pad)
+        add("ks", ks.astype(jnp.float32), sc_spec)
+        add("vs", vs.astype(jnp.float32), sc_spec)
+    if paged:
+        add("table", jnp.asarray(page_table, jnp.int32),
+            pl.BlockSpec((None, page_table.shape[1]),
+                         lambda i, b, h: (b, 0)))
+    if causal or alibi_slopes is not None or kv_positions is not None:
+        if q_offset is None:
+            q_offset = n_kv - n_q // pos_div
+        off = jnp.broadcast_to(
+            jnp.asarray(q_offset, jnp.int32).reshape(-1), (batch,)
         )
+        add("off", off, pl.BlockSpec((batch,), lambda i, b, h: (0,)))
+    if segment_ids is not None:
+        add("qseg",
+            _pad_to(segment_ids.q.astype(jnp.int32), 1, n_q_pad, -1),
+            pl.BlockSpec((None, block_q), lambda i, b, h: (b, i)))
+        add("kvseg",
+            _pad_to(segment_ids.kv.astype(jnp.int32), 1, n_kv_pad, -2),
+            pl.BlockSpec((None, n_kv_pad), lambda i, b, h: (b, 0)))
+    if kv_positions is not None:
+        add("kvpos",
+            _pad_to(kv_positions.astype(jnp.int32), 1, n_kv_pad, -1),
+            pl.BlockSpec((None, n_kv_pad), lambda i, b, h: (b, 0)))
+    if alibi_slopes is not None:
+        add("slopes", jnp.asarray(alibi_slopes, jnp.float32).reshape(heads),
+            pl.BlockSpec((heads,), lambda i, b, h: (0,)))
+    if dropout_rate:
+        seed = _pad_to(pack_dropout_seed(dropout_seed, dropout_offsets), 0, 8)
+        add("seed", seed, pl.BlockSpec((8,), lambda i, b, h: (0,)))
 
-    grid = (batch, heads, n_q // block_q, num_kv_major)
+    out_shape = [jax.ShapeDtypeStruct((batch, heads, n_q_pad, dp), q.dtype)]
+    out_specs = [pl.BlockSpec((None, None, block_q, dp),
+                              lambda i, b, h: (b, h, i, 0))]
+    names.append("o")
+    if save_lse:
+        out_shape.append(
+            jax.ShapeDtypeStruct((batch, heads, n_q_pad), jnp.float32)
+        )
+        out_specs.append(pl.BlockSpec((None, None, block_q),
+                                      lambda i, b, h: (b, h, i)))
+        names.append("lse")
 
-    if q_offset is None:
-        q_offset = n_kv - n_q // pos_div
-    q_offset = jnp.asarray(q_offset, jnp.int32)
-    q_offset = jnp.broadcast_to(q_offset.reshape(-1), (batch,))
-
-    bound = functools.partial(
+    kernel = functools.partial(
         _fwd_kernel,
-        sm_scale=sm_scale,
+        names=tuple(names),
+        sm_scale=float(sm_scale),
         causal=causal,
-        block_q=block_q,
-        block_k_major=block_k_major,
-        block_k=block_k,
-        num_kv_major=num_kv_major,
-        save_lse=save_lse,
-        lazy_softmax=lazy_softmax,
         window=window,
         sinks=int(sinks),
         softcap=softcap,
-        dropout_rate=dropout_rate,
+        dropout_rate=float(dropout_rate),
         dropout_heads=dropout_heads,
         pos_div=pos_div,
+        n_kv=n_kv,
+        block_q=block_q,
+        block_k=block_k,
+        num_kv_blocks=n_kv_pad // block_k,
+        num_heads=heads,
     )
-    has_seg = segment_ids is not None
-    has_pos = kv_positions is not None
-    has_alibi = alibi_slopes is not None
-
-    def kernel(off_ref, *rest):
-        # Optional-arg shim: segment-id / kv-position / ALiBi-slope inputs
-        # and the LSE output are only present in the pallas_call signature
-        # when requested.
-        seed_ref = None
-        if has_dropout:
-            seed_ref, rest = rest[0], rest[1:]
-        slopes_ref = None
-        if has_alibi:
-            slopes_ref, rest = rest[0], rest[1:]
-        q_ref, k_ref, v_ref = rest[:3]
-        i = 3
-        qseg_ref = kvseg_ref = kvpos_ref = None
-        if has_seg:
-            qseg_ref, kvseg_ref = rest[i : i + 2]
-            i += 2
-        if has_pos:
-            kvpos_ref = rest[i]
-            i += 1
-        o_ref = rest[i]
-        i += 1
-        lse_ref = None
-        if save_lse:
-            lse_ref = rest[i]
-            i += 1
-        m_s, l_s, acc_s = rest[i : i + 3]
-        return bound(
-            off_ref,
-            seed_ref,
-            q_ref,
-            k_ref,
-            v_ref,
-            qseg_ref,
-            kvseg_ref,
-            kvpos_ref,
-            slopes_ref,
-            o_ref,
-            lse_ref,
-            m_s,
-            l_s,
-            acc_s,
-        )
-
-    out_shapes = [jax.ShapeDtypeStruct(q.shape, q.dtype)]
-    out_specs = [
-        pl.BlockSpec((1, 1, block_q, head_dim), lambda b, h, i, j, *_: (b, h, i, 0))
-    ]
-    if save_lse:
-        out_shapes.append(
-            jax.ShapeDtypeStruct((batch, heads, n_q, NUM_LANES), jnp.float32)
-        )
-        out_specs.append(
-            pl.BlockSpec(
-                (1, 1, block_q, NUM_LANES), lambda b, h, i, j, *_: (b, h, i, 0)
-            )
-        )
-
-    # FLOP/byte model for the compiler's scheduler; with causal the score
-    # work is ~halved by the block skip.
-    flops = 4 * batch * heads * n_q * n_kv * head_dim
-    transcendentals = batch * heads * n_q * n_kv
-    if causal:
-        flops //= 2
-        transcendentals //= 2
-
-    if causal and not has_pos:
-        # Steps whose whole KV block lies above the causal diagonal are
-        # compute-skipped in the kernel (``pl.when(should_run)``); clamping
-        # their block index to the diagonal makes consecutive index_map
-        # results identical, so the pipeline elides their HBM->VMEM DMA too
-        # (measured: causal went from ~8% to ~25% faster than non-causal at
-        # B16 H8 N2048 — the true block-skip fraction).  ``off_ref`` is the
-        # scalar-prefetched per-batch q_offset, so this works with traced
-        # offsets (ring shards, ragged decode).
-        def kv_block_map(b, h, i, j, off_ref, *_):
-            diag = (
-                ((i + 1) * block_q - 1) // pos_div + off_ref[b]
-            ) // block_k_major
-            j_eff = jnp.minimum(j, diag)
-            if window is not None and not sinks:
-                # Blocks entirely below the sliding window re-map to the
-                # first in-window block (DMA elided like the diagonal
-                # clamp).  With sinks the leading blocks stay live, so no
-                # lower clamp applies.
-                j_min = (
-                    (i * block_q) // pos_div + off_ref[b] - window + 1
-                ) // block_k_major
-                j_eff = jnp.maximum(j_eff, j_min)
-            j_eff = jnp.clip(j_eff, 0, num_kv_major - 1)
-            return (b, h // kv_group, j_eff, 0)
-
-    else:
-        def kv_block_map(b, h, i, j, *_):
-            return (b, h // kv_group, j, 0)
-
-    in_specs = [
-        pl.BlockSpec(
-            (1, 1, block_q, head_dim), lambda b, h, i, j, *_: (b, h, i, 0)
-        ),
-        pl.BlockSpec((1, 1, block_k_major, head_dim), kv_block_map),
-        pl.BlockSpec((1, 1, block_k_major, head_dim), kv_block_map),
-    ]
-    inputs = [q, k, v]
-    if has_seg:
-        # Lane-replicated Q ids and sublane-replicated KV ids — the
-        # tile-aligned segment layout (same convention as jax's own TPU
-        # flash kernel).
-        qseg = jax.lax.broadcast_in_dim(
-            segment_ids.q.astype(jnp.int32),
-            (batch, n_q, NUM_LANES),
-            (0, 1),
-        )
-        kvseg = jax.lax.broadcast_in_dim(
-            segment_ids.kv.astype(jnp.int32),
-            (batch, NUM_SUBLANES, n_kv),
-            (0, 2),
-        )
-        in_specs.append(
-            pl.BlockSpec(
-                (1, block_q, NUM_LANES), lambda b, h, i, j, *_: (b, i, 0)
-            )
-        )
-
-        def kvseg_map(b, h, i, j, *args):
-            bb, hh, jj, _ = kv_block_map(b, h, i, j, *args)
-            return (bb, 0, jj)
-
-        in_specs.append(
-            pl.BlockSpec((1, NUM_SUBLANES, block_k_major), kvseg_map)
-        )
-        inputs += [qseg, kvseg]
-    if has_pos:
-        kvpos = jax.lax.broadcast_in_dim(
-            kv_positions.astype(jnp.int32),
-            (batch, NUM_SUBLANES, n_kv),
-            (0, 2),
-        )
-
-        def kvpos_map(b, h, i, j, *args):
-            bb, hh, jj, _ = kv_block_map(b, h, i, j, *args)
-            return (bb, 0, jj)
-
-        in_specs.append(
-            pl.BlockSpec((1, NUM_SUBLANES, block_k_major), kvpos_map)
-        )
-        inputs.append(kvpos)
-    scalar_args = [q_offset]
-    if has_dropout:
-        # int32 [seed, row_off, col_off, b_off, h_off] rides as a second
-        # scalar-prefetch operand; index maps all tolerate the extra
-        # trailing ref.
-        scalar_args.append(pack_dropout_seed(dropout_seed, dropout_offsets))
-    if has_alibi:
-        # One fp32 slope per q-head, in SMEM via scalar prefetch: the
-        # kernel reads a true scalar (slopes[h]) — scalar*vector
-        # broadcasts natively, whereas a (1, 1) VMEM slice cannot
-        # broadcast into both sublanes and lanes on Mosaic.  Heads
-        # sharing a KV group still get distinct slopes (q-head indexed).
-        scalar_args.append(
-            jnp.asarray(alibi_slopes, jnp.float32).reshape(heads)
-        )
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=len(scalar_args),
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        scratch_shapes=[
-            pltpu.VMEM((block_q, NUM_LANES), jnp.float32),
-            pltpu.VMEM((block_q, NUM_LANES), jnp.float32),
-            pltpu.VMEM((block_q, head_dim), jnp.float32),
-        ],
-    )
-
-    results = pl.pallas_call(
+    out = pl.pallas_call(
         kernel,
-        out_shape=out_shapes,
-        grid_spec=grid_spec,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel", "arbitrary"),
-            # Large tiles win on this kernel; lift the default 16MB
-            # scoped-vmem ceiling moderately (96MB measured slower than
-            # 32MB here: too much buffering starves the pipeline).
-            vmem_limit_bytes=32 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=flops,
-            bytes_accessed=(q.size + k.size + v.size + q.size)
-            * q.dtype.itemsize,
-            transcendentals=transcendentals,
-        ),
-        interpret=interpret,
-    )(*scalar_args, *inputs)
-
+        out_shape=out_shape,
+        grid=(n_q_pad // block_q, batch, heads),
+        in_specs=specs,
+        out_specs=out_specs,
+        compiler_params=launch_params(block_q, dp),
+        interpret=pallas_interpret(),
+        backend="triton",
+        name="flash_fwd",
+    )(*inputs)
+    o = out[0][:, :, :n_q, :head_dim]
     if save_lse:
-        o, lse_lanes = results
-        return o, lse_lanes
-    return results[0]
+        return o, out[1][:, :, :n_q]
+    return o
+
+
+@functools.partial(
+    jax.jit,
+    static_argnames=(
+        "sm_scale",
+        "causal",
+        "window",
+        "sinks",
+        "block_sizes",
+        "save_lse",
+        "softcap",
+        "dropout_rate",
+        "dropout_heads",
+        "pos_div",
+    ),
+)
+def flash_attention_fwd(
+    q: jax.Array,
+    k: jax.Array,
+    v: jax.Array,
+    q_offset: Optional[jax.Array] = None,
+    *,
+    sm_scale: Optional[float] = None,
+    causal: bool = False,
+    window: Optional[int] = None,
+    sinks: int = 0,
+    segment_ids=None,
+    kv_positions: Optional[jax.Array] = None,
+    block_sizes: Optional[BlockSizes] = None,
+    save_lse: bool = False,
+    softcap: Optional[float] = None,
+    alibi_slopes: Optional[jax.Array] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[jax.Array] = None,
+    dropout_offsets=None,
+    dropout_heads: Optional[int] = None,
+    pos_div: int = 1,
+) -> Union[jax.Array, Tuple[jax.Array, jax.Array]]:
+    """Flash-attention forward over ``[B, H, N, D]`` inputs.
+
+    ``q_offset``: optional int32 scalar or per-batch ``[B]`` vector (may
+    be traced: ring shards, ragged decode) -- query row ``r`` of batch
+    ``b`` attends to keys ``c <= r // pos_div + q_offset[b]`` when
+    ``causal``.  Defaults to ``n_kv - n_q // pos_div`` (end-aligned).
+
+    ``window``: with ``causal``, each row sees only its last ``window``
+    keys; ``sinks`` keeps the first ``sinks`` keys visible beyond it.
+
+    ``segment_ids``: optional ``config.SegmentIds`` (``q: [B, N_q]``,
+    ``kv: [B, N_kv]``) -- tokens attend only within equal ids.
+
+    ``kv_positions``: optional ``[B, N_kv]`` int32 global position of
+    each KV slot (-1 == never written); masking runs in position space,
+    as a rolling cache needs.  Requires ``causal``; forward only.
+
+    ``softcap``: tanh cap on the scaled scores, ``s = cap*tanh(s/cap)``.
+    ``alibi_slopes``: ``[H]`` slopes adding ``slope * (col - row -
+    q_offset)`` after the cap (position space with ``kv_positions``).
+
+    ``dropout_rate``/``dropout_seed``: attention-probability dropout from
+    a hash of the seed and the absolute (batch*head, row, col), the same
+    mask the oracle and the backward kernels regenerate.
+    ``dropout_offsets`` ``(row, col, batch, head)`` and ``dropout_heads``
+    translate shard-local coordinates to global ones under ``shard_map``.
+
+    ``pos_div``: rows per position (GQA decode head-fold).  Requires
+    ``causal``; does not compose with alibi/segments/kv_positions/dropout.
+
+    Returns ``o`` (shape and dtype of ``q``) or ``(o, lse)`` with
+    ``lse [B, H, N_q]`` fp32; fully masked rows give ``o = 0`` and
+    ``lse = -inf``.
+    """
+    return attention_fwd(
+        q, k, v, q_offset,
+        sm_scale=sm_scale, causal=causal, window=window, sinks=sinks,
+        segment_ids=segment_ids, kv_positions=kv_positions,
+        block_sizes=block_sizes, save_lse=save_lse, softcap=softcap,
+        alibi_slopes=alibi_slopes, dropout_rate=dropout_rate,
+        dropout_seed=dropout_seed, dropout_offsets=dropout_offsets,
+        dropout_heads=dropout_heads, pos_div=pos_div,
+    )

@@ -3,15 +3,12 @@
 vLLM-style paged KV for fragmentation-free long-tail serving.  Physical
 KV storage is a shared pool of fixed-size pages ``[P, H_kv, page_size, D]``
 and each batch slot owns an int32 row of a page table mapping *logical*
-page index -> physical page id.  The TPU-native trick: the indirection
-lives entirely in the Pallas KV ``index_map`` — the page table rides
-scalar prefetch (SMEM) next to the per-slot causal offsets, the grid's
-KV axis walks *logical* pages, and the index map translates each step to
-its physical page.  The kernel body (``flash_fwd._fwd_kernel``) is reused
-unchanged: all masking runs in logical position space, so correctness is
-independent of physical placement, and the causal diagonal clamp still
-collapses post-diagonal steps onto the same physical page (their DMAs are
-elided exactly like the dense kernel's).
+page index -> physical page id.  The forward kernel
+(``flash_fwd._fwd_kernel``) walks logical pages one per loop step and
+loads each step's physical page id from the table itself (the GPU has no
+scalar prefetch).  All masking runs in logical position space, so
+results are independent of physical placement, and the causal loop bound
+stops at the diagonal page: pages past a slot's length are never read.
 
 This generalizes the reference's cross-invocation state design seed (the
 persisted logsumexp, ``kernels.metal:861-864``) the same way the dense
@@ -25,48 +22,14 @@ import functools
 from typing import Optional
 
 import jax
-import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from ..config import NUM_LANES, default_scale
-from .flash_fwd import _fwd_kernel
-from .quant import _quant_fwd_kernel
+from .flash_fwd import attention_fwd
 
 
-def _make_page_map(
-    block_q: int,
-    page_size: int,
-    max_pages: int,
-    n_pages: int,
-    pos_div: int,
-    kv_group: int,
-    window,
-    sinks: int,
-):
-    """Logical->physical KV index map shared by the paged kernels.
-
-    Applies the dense kernel's diagonal clamp first (so skipped steps
-    re-reference an already-fetched physical page and their DMAs are
-    elided), then translates through the scalar-prefetched table."""
-
-    def kv_page_map(b, h, i, j, off_ref, table_ref, *_):
-        diag = (
-            ((i + 1) * block_q - 1) // pos_div + off_ref[b]
-        ) // page_size
-        j_eff = jnp.minimum(j, diag)
-        if window is not None and not sinks:
-            j_min = (
-                (i * block_q) // pos_div + off_ref[b] - window + 1
-            ) // page_size
-            j_eff = jnp.maximum(j_eff, j_min)
-        j_eff = jnp.clip(j_eff, 0, max_pages - 1)
-        phys = table_ref[b, j_eff]
-        return (jnp.clip(phys, 0, n_pages - 1), h // kv_group, 0, 0)
-
-    return kv_page_map
-
-
+@functools.partial(
+    jax.jit,
+    static_argnames=("sm_scale", "window", "sinks", "softcap", "pos_div"),
+)
 def flash_attention_paged(
     q: jax.Array,
     pool_k: jax.Array,
@@ -79,148 +42,37 @@ def flash_attention_paged(
     sinks: int = 0,
     softcap: Optional[float] = None,
     alibi_slopes: Optional[jax.Array] = None,
-    block_q: int = 128,
     pos_div: int = 1,
-    interpret: bool = False,
 ) -> jax.Array:
     """Causal flash attention reading KV through a page table.
 
     * ``q``: ``[B, H, T_new, D]`` — the step's query rows (T_new = 1 for
       decode, up to a prefill chunk otherwise).
     * ``pool_k`` / ``pool_v``: ``[P, H_kv, page_size, D]`` shared page
-      pool (one layer's view).
+      pool (one layer's view); ``page_size`` is a power of two >= 16.
     * ``page_table``: ``[B, max_pages]`` int32 — physical page id per
       logical page.  Every logical page that can hold a visible position
       (i.e. up to ``ceil((lengths[b] + T_new) / page_size)``) MUST be
-      allocated; entries past that are never dereferenced (the causal
-      clamp keeps the index map at/below the diagonal page).
+      allocated; entries past that are never dereferenced.
     * ``lengths``: ``[B]`` int32 — tokens already in the cache *before*
       this step's rows (the causal q_offset, exactly as the dense decode
       path uses it).
 
-    Masking is always causal in logical position space; ``window`` /
-    ``sinks`` compose like the dense kernel's, and the ``softcap`` /
-    ``alibi_slopes`` score transforms ride the shared kernel body
-    unchanged (ALiBi distance is logical-position distance — physical
-    page placement never enters the scores).  Forward-only (serving).
+    ``window`` / ``sinks`` / ``softcap`` / ``alibi_slopes`` / ``pos_div``
+    compose as in ``flash_attention_fwd`` (ALiBi distance is logical
+    position distance).  Forward-only (serving).
     """
-    batch, heads, n_q, head_dim = q.shape
-    n_pages, kv_heads, page_size, d_kv = pool_k.shape
-    if d_kv != head_dim:
-        raise ValueError(f"head_dim mismatch: q {head_dim} vs pool {d_kv}")
-    if heads % kv_heads:
-        raise ValueError(
-            f"q heads ({heads}) must be a multiple of kv heads ({kv_heads})"
-        )
-    kv_group = heads // kv_heads
-    if pos_div != 1 and alibi_slopes is not None:
-        raise NotImplementedError(
-            "pos_div > 1 (head-fold) needs per-row ALiBi slopes; "
-            "use the unfolded path"
-        )
-    max_pages = page_table.shape[1]
-    if page_size % NUM_LANES:
-        raise ValueError(f"page_size={page_size} must be a multiple of 128")
-    if sm_scale is None:
-        sm_scale = default_scale(head_dim)
-    block_q = min(block_q, n_q)
-    if n_q % block_q:
-        raise ValueError(f"n_q={n_q} not divisible by block_q={block_q}")
-
-    grid = (batch, heads, n_q // block_q, max_pages)
-    q_offset = jnp.broadcast_to(
-        jnp.asarray(lengths, jnp.int32).reshape(-1), (batch,)
-    )
-    table = jnp.asarray(page_table, jnp.int32)
-
-    has_alibi = alibi_slopes is not None
-
-    bound = functools.partial(
-        _fwd_kernel,
-        sm_scale=sm_scale,
-        causal=True,
-        block_q=block_q,
-        block_k_major=page_size,
-        block_k=page_size,
-        num_kv_major=max_pages,
-        save_lse=False,
-        lazy_softmax=True,
-        window=window,
-        sinks=int(sinks),
-        softcap=softcap,
-        pos_div=pos_div,
+    return attention_fwd(
+        q, pool_k, pool_v, lengths, page_table=page_table, causal=True,
+        sm_scale=sm_scale, window=window, sinks=sinks, softcap=softcap,
+        alibi_slopes=alibi_slopes, pos_div=pos_div,
     )
 
-    def kernel(off_ref, table_ref, *rest):
-        del table_ref  # consumed by the index maps only
-        slopes_r = None
-        if has_alibi:
-            # Scalar-prefetch (SMEM) [H] slopes — third scalar operand.
-            slopes_r, rest = rest[0], rest[1:]
-        q_ref, k_ref, v_ref, o_ref, m_s, l_s, a_s = rest
-        return bound(
-            off_ref, None, q_ref, k_ref, v_ref, None, None, None, slopes_r,
-            o_ref, None, m_s, l_s, a_s,
-        )
 
-    kv_page_map = _make_page_map(
-        block_q, page_size, max_pages, n_pages, pos_div, kv_group, window,
-        int(sinks),
-    )
-
-    in_specs = [
-        pl.BlockSpec(
-            (1, 1, block_q, head_dim), lambda b, h, i, j, *_: (b, h, i, 0)
-        ),
-        pl.BlockSpec((1, 1, page_size, head_dim), kv_page_map),
-        pl.BlockSpec((1, 1, page_size, head_dim), kv_page_map),
-    ]
-    inputs = [q, pool_k, pool_v]
-    scalar_args = [q_offset, table]
-    if has_alibi:
-        # Per-q-head fp32 slopes via scalar prefetch (flash_fwd analog).
-        scalar_args.append(
-            jnp.asarray(alibi_slopes, jnp.float32).reshape(heads)
-        )
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=len(scalar_args),
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec(
-                (1, 1, block_q, head_dim), lambda b, h, i, j, *_: (b, h, i, 0)
-            )
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((block_q, NUM_LANES), jnp.float32),
-            pltpu.VMEM((block_q, NUM_LANES), jnp.float32),
-            pltpu.VMEM((block_q, head_dim), jnp.float32),
-        ],
-    )
-
-    # FLOP model: only pages at/below each slot's diagonal do work, which
-    # the scheduler can't see per-batch — use the worst case (full table).
-    flops = 2 * batch * heads * n_q * max_pages * page_size * head_dim
-    out = pl.pallas_call(
-        kernel,
-        out_shape=[jax.ShapeDtypeStruct(q.shape, q.dtype)],
-        grid_spec=grid_spec,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=32 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=flops,
-            bytes_accessed=(q.size + pool_k.size + pool_v.size + q.size)
-            * q.dtype.itemsize,
-            transcendentals=batch * heads * n_q * max_pages * page_size,
-        ),
-        interpret=interpret,
-    )(*scalar_args, *inputs)
-    return out[0]
-
-
+@functools.partial(
+    jax.jit,
+    static_argnames=("sm_scale", "window", "sinks", "softcap", "pos_div"),
+)
 def flash_attention_paged_quant(
     q: jax.Array,
     pool_k_q: jax.Array,
@@ -235,143 +87,22 @@ def flash_attention_paged_quant(
     sinks: int = 0,
     softcap: Optional[float] = None,
     alibi_slopes: Optional[jax.Array] = None,
-    block_q: int = 128,
     pos_div: int = 1,
-    interpret: bool = False,
 ) -> jax.Array:
     """Causal flash attention over an 8-bit paged KV pool.
 
-    The paged analog of ``kernels/quant.py::flash_attention_quant`` —
-    HBM traffic is 8-bit pages + per-token scales, dequant happens in
-    VMEM, and the logical->physical translation rides the same
-    scalar-prefetch index maps as ``flash_attention_paged``.  Completes
-    the BASELINE config-5 stack: 8-bit KV x continuous batching x paging.
+    The paged analog of ``kernels/quant.py::flash_attention_quant``: the
+    kernel reads 8-bit pages plus per-token scales and converts them in
+    registers.
 
     * ``pool_k_q`` / ``pool_v_q``: ``[P, H_kv, page_size, D]`` int8/fp8.
     * ``pool_k_scale`` / ``pool_v_scale``: ``[P, H_kv, page_size]``
-      fp32 per-token scales (reshaped internally to the quant kernel's
-      ``[rows, 128]`` lane layout).
+      fp32 per-token scales.
     * ``page_table`` / ``lengths``: as ``flash_attention_paged``.
     """
-    batch, heads, n_q, head_dim = q.shape
-    n_pages, kv_heads, page_size, d_kv = pool_k_q.shape
-    if d_kv != head_dim:
-        raise ValueError(f"head_dim mismatch: q {head_dim} vs pool {d_kv}")
-    if heads % kv_heads:
-        raise ValueError(
-            f"q heads ({heads}) must be a multiple of kv heads ({kv_heads})"
-        )
-    kv_group = heads // kv_heads
-    if pos_div != 1 and alibi_slopes is not None:
-        raise NotImplementedError(
-            "pos_div > 1 (head-fold) needs per-row ALiBi slopes; "
-            "use the unfolded path"
-        )
-    max_pages = page_table.shape[1]
-    if page_size % NUM_LANES:
-        raise ValueError(f"page_size={page_size} must be a multiple of 128")
-    if sm_scale is None:
-        sm_scale = default_scale(head_dim)
-    block_q = min(block_q, n_q)
-    if n_q % block_q:
-        raise ValueError(f"n_q={n_q} not divisible by block_q={block_q}")
-    scale_rows = page_size // NUM_LANES
-
-    grid = (batch, heads, n_q // block_q, max_pages)
-    q_offset = jnp.broadcast_to(
-        jnp.asarray(lengths, jnp.int32).reshape(-1), (batch,)
+    return attention_fwd(
+        q, pool_k_q, pool_v_q, lengths, page_table=page_table,
+        k_scale=pool_k_scale, v_scale=pool_v_scale, causal=True,
+        sm_scale=sm_scale, window=window, sinks=sinks, softcap=softcap,
+        alibi_slopes=alibi_slopes, pos_div=pos_div,
     )
-    table = jnp.asarray(page_table, jnp.int32)
-    ks = pool_k_scale.astype(jnp.float32).reshape(
-        n_pages, kv_heads, scale_rows, NUM_LANES
-    )
-    vs = pool_v_scale.astype(jnp.float32).reshape(
-        n_pages, kv_heads, scale_rows, NUM_LANES
-    )
-
-    has_alibi = alibi_slopes is not None
-
-    bound = functools.partial(
-        _quant_fwd_kernel,
-        sm_scale=sm_scale,
-        causal=True,
-        window=window,
-        sinks=int(sinks),
-        block_q=block_q,
-        block_k=page_size,
-        num_kv=max_pages,
-        save_lse=False,
-        softcap=softcap,
-        pos_div=pos_div,
-    )
-
-    def kernel(off_ref, table_ref, *rest):
-        del table_ref  # consumed by the index maps only
-        slopes_r = None
-        if has_alibi:
-            # Scalar-prefetch (SMEM) [H] slopes — third scalar operand.
-            slopes_r, rest = rest[0], rest[1:]
-        q_ref, kq_ref, vq_ref, ks_ref, vs_ref, o_ref, m_s, l_s, a_s = rest
-        return bound(
-            off_ref, q_ref, kq_ref, vq_ref, ks_ref, vs_ref, None, slopes_r,
-            o_ref, None, m_s, l_s, a_s,
-        )
-
-    kv_page_map = _make_page_map(
-        block_q, page_size, max_pages, n_pages, pos_div, kv_group, window,
-        int(sinks),
-    )
-
-    in_specs = [
-        pl.BlockSpec(
-            (1, 1, block_q, head_dim), lambda b, h, i, j, *_: (b, h, i, 0)
-        ),
-        pl.BlockSpec((1, 1, page_size, head_dim), kv_page_map),
-        pl.BlockSpec((1, 1, page_size, head_dim), kv_page_map),
-        pl.BlockSpec((1, 1, scale_rows, NUM_LANES), kv_page_map),
-        pl.BlockSpec((1, 1, scale_rows, NUM_LANES), kv_page_map),
-    ]
-    inputs = [q, pool_k_q, pool_v_q, ks, vs]
-    scalar_args = [q_offset, table]
-    if has_alibi:
-        # Per-q-head fp32 slopes via scalar prefetch (flash_fwd analog).
-        scalar_args.append(
-            jnp.asarray(alibi_slopes, jnp.float32).reshape(heads)
-        )
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=len(scalar_args),
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec(
-                (1, 1, block_q, head_dim), lambda b, h, i, j, *_: (b, h, i, 0)
-            )
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((block_q, NUM_LANES), jnp.float32),
-            pltpu.VMEM((block_q, NUM_LANES), jnp.float32),
-            pltpu.VMEM((block_q, head_dim), jnp.float32),
-        ],
-    )
-
-    flops = 4 * batch * heads * n_q * max_pages * page_size * head_dim
-    out = pl.pallas_call(
-        kernel,
-        out_shape=[jax.ShapeDtypeStruct(q.shape, q.dtype)],
-        grid_spec=grid_spec,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=32 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=flops,
-            bytes_accessed=2 * q.size * q.dtype.itemsize
-            + pool_k_q.size
-            + pool_v_q.size
-            + (ks.size + vs.size) * 4,
-            transcendentals=batch * heads * n_q * max_pages * page_size,
-        ),
-        interpret=interpret,
-    )(*scalar_args, *inputs)
-    return out[0]

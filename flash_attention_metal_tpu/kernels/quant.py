@@ -2,34 +2,19 @@
 
 The reference's lowest-precision path is fp16 storage with fp32 statistics
 (V4, ``kernels.metal:597-883``); BASELINE.json's quant scheme extends that
-one step further for the TPU build: **fp8/int8 KV cache with per-token
-scales**, halving (vs bf16) the HBM traffic of the decode-dominant KV
-reads while keeping bf16 MXU compute and fp32 softmax statistics.
+one step further: **fp8/int8 KV cache with per-token scales**, halving
+(vs bf16) the bytes that bandwidth-bound decode reads, while the dots run
+in the query's dtype with fp32 softmax statistics.
 
 Scheme (symmetric, per-token, absmax):
 
 * ``k_q[t] = round(k[t] / s_k[t])`` with ``s_k[t] = absmax(k[t]) / QMAX``
-* scales are folded back in *outside* the MXU contractions:
-  - K: ``S[:, t] = (q . k_q[t]) * s_k[t]`` — one row-vector multiply on the
-    score tile (the contraction itself runs on dequant-free operands).
-  - V: ``O += (P * s_v)[.,t] v_q[t]`` — folded into the existing P rescale,
-    zero extra passes.
-* scales are stored ``[B, H, N/128, 128]`` — a tile-aligned reshape of the
-  per-token vector, so kernel-side slicing is a plain block fetch (same
-  trick as the lane-replicated LSE layout).
-
-Verified against the fp32 oracle at the reference's half-precision
-tolerance ladder (int8 attention error is dominated by the 8-bit mantissa,
-comfortably under the 1e-1 backward rung; forward holds ~1e-2-class
-accuracy like the V4 rung, ``main.mm:452``).
-
-Performance note (measured on v5e): **int8 is the production 8-bit
-format on this chip** — the int8->bf16 upcast is native and the
-memory-bound decode case runs ~25% faster than bf16 KV (7.4us vs 9.5us
-for 128 q-rows against a 16K cache).  The fp8 formats (e4m3/e5m2) are
-numerically supported but ~10x slower here: v5e has no fp8 datapath, so
-the cast lowers to scalar VPU ops.  Chips with native fp8 (v6e+) flip
-that trade; the format is a config knob, not a code change.
+* scales fold back in *outside* the dots, inside the forward kernel
+  (``flash_fwd._fwd_kernel``): ``S[:, t] = (q . k_q[t]) * s_k[t]`` on the
+  score columns and ``O += (P * s_v)[., t] v_q[t]`` on the probabilities,
+  so the 8-bit tiles are converted in registers after the load and
+  never rescaled.
+* scales are stored per token, ``[B, H, N]`` fp32.
 """
 
 from __future__ import annotations
@@ -40,17 +25,9 @@ from typing import Optional, Tuple, Union
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from ..config import (
-    DEFAULT_MASK_VALUE,
-    NUM_LANES,
-    NUM_SUBLANES,
-    BlockSizes,
-    default_scale,
-)
-from .flash_fwd import _EXP2_CLAMP, _LN2, _LOG2E
+from ..config import BlockSizes
+from .flash_fwd import attention_fwd
 
 
 _QMAX = {
@@ -63,12 +40,12 @@ _QMAX = {
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass
 class QuantizedKV:
-    """A quantized KV pair with tile-aligned per-token scales."""
+    """A quantized KV pair with per-token scales."""
 
     k_q: jax.Array  # [B, H, N, D] int8/fp8
     v_q: jax.Array  # [B, H, N, D] int8/fp8
-    k_scale: jax.Array  # [B, H, N // 128, 128] fp32
-    v_scale: jax.Array  # [B, H, N // 128, 128] fp32
+    k_scale: jax.Array  # [B, H, N] fp32
+    v_scale: jax.Array  # [B, H, N] fp32
 
     def tree_flatten(self):
         return (self.k_q, self.v_q, self.k_scale, self.v_scale), None
@@ -82,26 +59,27 @@ class QuantizedKV:
         return self.k_q.shape[2]
 
 
+def quantize_tokens(x: jax.Array, dtype) -> Tuple[jax.Array, jax.Array]:
+    """Symmetric per-token absmax quantization of ``[..., D]`` rows.
+
+    Returns the 8-bit values and the fp32 scales ``[...]``.
+    """
+    qmax = _QMAX[jnp.dtype(dtype)]
+    xf = x.astype(jnp.float32)
+    amax = jnp.max(jnp.abs(xf), axis=-1, keepdims=True)
+    scale = jnp.maximum(amax, 1e-12) / qmax
+    if jnp.dtype(dtype) == jnp.int8.dtype:
+        xq = jnp.clip(jnp.round(xf / scale), -qmax, qmax).astype(dtype)
+    else:
+        xq = (xf / scale).astype(dtype)
+    return xq, scale[..., 0]
+
+
 @functools.partial(jax.jit, static_argnames=("dtype",))
 def quantize_kv(k: jax.Array, v: jax.Array, dtype=jnp.int8) -> QuantizedKV:
     """Symmetric per-token absmax quantization of a KV pair."""
-    qmax = _QMAX[jnp.dtype(dtype)]
-
-    def quant(x):
-        amax = jnp.max(jnp.abs(x.astype(jnp.float32)), axis=-1, keepdims=True)
-        scale = jnp.maximum(amax, 1e-12) / qmax
-        if jnp.dtype(dtype) == jnp.int8.dtype:
-            xq = jnp.clip(
-                jnp.round(x.astype(jnp.float32) / scale), -qmax, qmax
-            ).astype(dtype)
-        else:
-            xq = (x.astype(jnp.float32) / scale).astype(dtype)
-        b, h, n, _ = x.shape
-        scales = scale[..., 0].reshape(b, h, n // NUM_LANES, NUM_LANES)
-        return xq, scales.astype(jnp.float32)
-
-    k_q, k_scale = quant(k)
-    v_q, v_scale = quant(v)
+    k_q, k_scale = quantize_tokens(k, dtype)
+    v_q, v_scale = quantize_tokens(v, dtype)
     return QuantizedKV(k_q, v_q, k_scale, v_scale)
 
 
@@ -109,187 +87,9 @@ def dequantize_kv(qkv: QuantizedKV, dtype=jnp.bfloat16):
     """Reference dequantization (for testing)."""
 
     def dq(xq, scales):
-        b, h, nb, lanes = scales.shape
-        s = scales.reshape(b, h, nb * lanes, 1)
-        return (xq.astype(jnp.float32) * s).astype(dtype)
+        return (xq.astype(jnp.float32) * scales[..., None]).astype(dtype)
 
     return dq(qkv.k_q, qkv.k_scale), dq(qkv.v_q, qkv.v_scale)
-
-
-def _quant_fwd_kernel(
-    off_ref,
-    q_ref,
-    kq_ref,
-    vq_ref,
-    ks_ref,
-    vs_ref,
-    kvpos_ref,
-    slopes_ref,
-    o_ref,
-    lse_ref,
-    m_scratch,
-    l_scratch,
-    acc_scratch,
-    *,
-    sm_scale: float,
-    causal: bool,
-    window,
-    sinks,
-    block_q: int,
-    block_k: int,
-    num_kv: int,
-    save_lse: bool,
-    softcap=None,
-    pos_div: int = 1,
-):
-    # ``pos_div``: rows-per-position (GQA decode head-fold; see
-    # flash_fwd._fwd_kernel) — row r masks at position r // pos_div.
-    q_idx = pl.program_id(2)
-    kv_idx = pl.program_id(3)
-    if slopes_ref is not None:
-        # Scalar-prefetch (SMEM) [H] vector: true scalar read — a (1, 1)
-        # VMEM slice cannot broadcast into both sublanes and lanes on
-        # Mosaic, but scalar*vector is native.  Read at kernel top level:
-        # program_id inside pl.when bodies is not substituted by the CPU
-        # interpreter.
-        slope2 = slopes_ref[pl.program_id(1)] * _LOG2E
-
-    @pl.when(kv_idx == 0)
-    def _init():
-        # Lagged-base softmax (see flash_fwd): base starts at 0 and only
-        # grows; any base is algebraically valid.
-        m_scratch[...] = jnp.zeros_like(m_scratch)
-        l_scratch[...] = jnp.zeros_like(l_scratch)
-        acc_scratch[...] = jnp.zeros_like(acc_scratch)
-
-    if causal:
-        q_offset = off_ref[pl.program_id(0)]
-    if causal and kvpos_ref is None:
-        should_run = (
-            ((q_idx + 1) * block_q - 1) // pos_div + q_offset
-            >= kv_idx * block_k
-        )
-        if window is not None:
-            in_window = (
-                (kv_idx + 1) * block_k - 1
-                >= (q_idx * block_q) // pos_div + q_offset - window + 1
-            )
-            if sinks:
-                in_window |= kv_idx * block_k < sinks
-            should_run &= in_window
-    else:
-        should_run = True
-
-    @pl.when(should_run)
-    def _run():
-        q = q_ref[0, 0]
-        compute_dtype = q.dtype
-        # In-VMEM dequant-to-compute-dtype: HBM traffic is 8-bit, the MXU
-        # sees bf16 (the TPU analog of loading fp16 and upcasting in
-        # registers, ``kernels.metal:650-663``).
-        k = kq_ref[0, 0].astype(compute_dtype)
-        v = vq_ref[0, 0].astype(compute_dtype)
-        # Per-token scale rows, collapsed to (1, block_k).
-        k_scale = ks_ref[0, 0].reshape(1, block_k)
-        v_scale = vs_ref[0, 0].reshape(1, block_k)
-
-        s = jax.lax.dot_general(
-            q, k, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
-        )
-        # Fold the K dequant scale AND log2(e) into the score scale
-        # (column-wise, one pass): the softmax below is a raw exp2.
-        s = s * (k_scale * (sm_scale * _LOG2E))
-
-        # Score transforms between the (dequant-scaled) QK^T and masking,
-        # in log2 units — same rebase as flash_fwd._transform.
-        if softcap is not None:
-            c2 = softcap * _LOG2E
-            s = c2 * jnp.tanh(s * (1.0 / c2))
-        if slopes_ref is not None:
-            rowpos_a = (
-                jax.lax.broadcasted_iota(jnp.int32, (s.shape[0], 1), 0)
-                + q_idx * block_q
-                + q_offset
-            )
-            if kvpos_ref is not None:
-                colpos_a = kvpos_ref[0, :1, :]
-            else:
-                colpos_a = (
-                    jax.lax.broadcasted_iota(jnp.int32, (1, s.shape[1]), 1)
-                    + kv_idx * block_k
-                )
-            s = s + slope2 * (colpos_a - rowpos_a).astype(jnp.float32)
-
-        if kvpos_ref is not None:
-            # Position-space masking for rolling quantized caches.
-            rowpos = (
-                jax.lax.broadcasted_iota(jnp.int32, s.shape, 0)
-                + q_idx * block_q
-                + q_offset
-            )
-            kvpos = kvpos_ref[0, :1, :]
-            visible = (kvpos <= rowpos) & (kvpos >= 0)
-            if window is not None:
-                keep = kvpos > rowpos - window
-                if sinks:
-                    keep |= kvpos < sinks
-                visible &= keep
-            s = jnp.where(visible, s, DEFAULT_MASK_VALUE)
-        elif causal:
-            row = (
-                jax.lax.broadcasted_iota(jnp.int32, s.shape, 0)
-                + q_idx * block_q
-            )
-            if pos_div != 1:
-                row = row // pos_div
-            row = row + q_offset
-            col = (
-                jax.lax.broadcasted_iota(jnp.int32, s.shape, 1)
-                + kv_idx * block_k
-            )
-            visible = col <= row
-            if window is not None:
-                keep = col > row - window
-                if sinks:
-                    keep |= col < sinks
-                visible &= keep
-            s = jnp.where(visible, s, DEFAULT_MASK_VALUE)
-
-        # Lagged-base update (flash_fwd._lazy analog): exponentiate
-        # against the previous block's base so the max reduce overlaps
-        # P.V instead of serializing before the exp.
-        b_prev = m_scratch[...]
-        p = jnp.exp2(jnp.minimum(s - b_prev[:, :1], _EXP2_CLAMP))
-        # Fold the V dequant scale into the existing P rescale — zero
-        # extra VPU passes for V dequantization.
-        pv = jax.lax.dot_general(
-            (p * v_scale).astype(compute_dtype),
-            v,
-            (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        m_curr = jnp.max(s, axis=-1, keepdims=True)
-        b_next = jnp.maximum(b_prev, m_curr)
-        alpha = jnp.exp2(b_prev - b_next)
-        l_scratch[...] = (
-            l_scratch[...] + jnp.sum(p, axis=-1, keepdims=True)
-        ) * alpha
-        acc_scratch[...] = (acc_scratch[...] + pv) * alpha[:, :1]
-        m_scratch[...] = b_next
-
-    @pl.when(kv_idx == num_kv - 1)
-    def _store():
-        l = l_scratch[...][:, :1]
-        l_inv = jnp.where(l == 0.0, 1.0, 1.0 / l)
-        o_ref[0, 0, :, :] = (acc_scratch[...] * l_inv).astype(o_ref.dtype)
-        if save_lse:
-            m = m_scratch[...][:, :1]
-            lse = jnp.where(
-                l == 0.0,
-                -jnp.inf,
-                m * _LN2 + jnp.log(jnp.where(l == 0.0, 1.0, l)),
-            )
-            lse_ref[0, 0, :, :] = jnp.broadcast_to(lse, lse_ref.shape[2:])
 
 
 @functools.partial(
@@ -303,7 +103,6 @@ def _quant_fwd_kernel(
         "save_lse",
         "softcap",
         "pos_div",
-        "interpret",
     ),
 )
 def flash_attention_quant(
@@ -321,206 +120,20 @@ def flash_attention_quant(
     softcap: Optional[float] = None,
     alibi_slopes: Optional[jax.Array] = None,
     pos_div: int = 1,
-    interpret: bool = False,
 ) -> Union[jax.Array, Tuple[jax.Array, jax.Array]]:
     """Flash attention against an int8/fp8 KV cache.
 
-    ``pos_div``: rows-per-position for the GQA decode head-fold
-    (``runtime.decode._attn_with_cache`` folds the group q-heads into
-    query rows via ``ops.fold_gqa_rows``); requires ``causal`` and no
-    alibi/kv_positions.
-
     ``q``: ``[B, H, N_q, D]`` bf16/fp16/fp32; returns ``o`` (and the
-    lane-replicated LSE when requested, like ``flash_attention_fwd``).
-    ``q_offset``: optional per-batch int32 causal offset, same semantics
-    as ``flash_attention_fwd`` (ragged continuous-batching decode against
-    a quantized cache rides this).
-    ``softcap`` / ``alibi_slopes``: score transforms with
-    ``flash_attention_fwd``'s semantics (the cap applies to the
-    dequant-scaled natural score; ALiBi distance runs in position space
-    on rolling caches).  ALiBi requires ``causal=True`` here — the
-    serving paths that reach this kernel are always causal.
+    ``[B, H, N_q]`` LSE when requested), with ``flash_attention_fwd``'s
+    semantics for ``q_offset``, ``kv_positions``, ``window``/``sinks``,
+    ``softcap``, ``alibi_slopes`` and ``pos_div`` (the GQA decode
+    head-fold).  GQA is native: the cache keeps its KV head count.
     """
-    batch, heads, n_q, head_dim = q.shape
-    n_kv = qkv.seq_len
-    kv_heads = qkv.k_q.shape[1]
-    if heads % kv_heads:
-        raise ValueError(
-            f"q heads ({heads}) must be a multiple of kv heads ({kv_heads})"
-        )
-    # Native GQA: KV/scale index maps fold the head group (flash_fwd
-    # analog) -- no materialized broadcast of the 8-bit cache.
-    kv_group = heads // kv_heads
-    if sm_scale is None:
-        sm_scale = default_scale(head_dim)
-    if block_sizes is None:
-        block_sizes = BlockSizes.for_seq_len(n_q, n_kv)
-    block_q = min(block_sizes.block_q, n_q)
-    block_k = min(block_sizes.block_k_major, n_kv)
-    if n_q % block_q or n_kv % block_k:
-        raise ValueError(f"({n_q},{n_kv}) not divisible by ({block_q},{block_k})")
-    num_kv = n_kv // block_k
-    grid = (batch, heads, n_q // block_q, num_kv)
-    scale_rows = block_k // NUM_LANES
-
-    if q_offset is None:
-        q_offset = n_kv - n_q // pos_div
-    q_offset = jnp.asarray(q_offset, jnp.int32)
-    q_offset = jnp.broadcast_to(q_offset.reshape(-1), (batch,))
-
-    if window is not None:
-        if not causal:
-            raise ValueError("window requires causal=True")
-        window = int(window)
-    if kv_positions is not None and not causal:
-        raise ValueError("kv_positions requires causal=True")
-    if pos_div != 1 and (
-        not causal or kv_positions is not None or alibi_slopes is not None
-    ):
-        raise NotImplementedError(
-            "pos_div > 1 requires causal=True without kv_positions/alibi"
-        )
-    if alibi_slopes is not None and not causal:
-        raise ValueError("alibi_slopes requires causal=True on the quant path")
-    has_pos = kv_positions is not None
-    has_alibi = alibi_slopes is not None
-
-    bound = functools.partial(
-        _quant_fwd_kernel,
-        sm_scale=sm_scale,
-        causal=causal,
-        window=window,
-        sinks=int(sinks),
-        block_q=block_q,
-        block_k=block_k,
-        num_kv=num_kv,
-        save_lse=save_lse,
-        softcap=softcap,
+    return attention_fwd(
+        q, qkv.k_q, qkv.v_q, q_offset,
+        k_scale=qkv.k_scale, v_scale=qkv.v_scale,
+        kv_positions=kv_positions, sm_scale=sm_scale, causal=causal,
+        window=window, sinks=sinks, block_sizes=block_sizes,
+        save_lse=save_lse, softcap=softcap, alibi_slopes=alibi_slopes,
         pos_div=pos_div,
     )
-
-    def kernel(off_ref, *rest):
-        # Optional-arg shim (ALiBi scalar-prefetch ref, kv positions, LSE).
-        slopes_r = None
-        if has_alibi:
-            slopes_r, rest = rest[0], rest[1:]
-        q_r, kq_r, vq_r, ks_r, vs_r = rest[:5]
-        i = 5
-        kvpos_r = None
-        if has_pos:
-            kvpos_r = rest[i]
-            i += 1
-        o_r = rest[i]
-        i += 1
-        lse_r = None
-        if save_lse:
-            lse_r = rest[i]
-            i += 1
-        m_s, l_s, acc_s = rest[i : i + 3]
-        return bound(
-            off_ref, q_r, kq_r, vq_r, ks_r, vs_r, kvpos_r, slopes_r, o_r,
-            lse_r, m_s, l_s, acc_s,
-        )
-
-    out_shapes = [jax.ShapeDtypeStruct(q.shape, q.dtype)]
-    out_specs = [
-        pl.BlockSpec(
-            (1, 1, block_q, head_dim), lambda b, h, i, j, *_: (b, h, i, 0)
-        )
-    ]
-    if save_lse:
-        out_shapes.append(
-            jax.ShapeDtypeStruct((batch, heads, n_q, NUM_LANES), jnp.float32)
-        )
-        out_specs.append(
-            pl.BlockSpec(
-                (1, 1, block_q, NUM_LANES), lambda b, h, i, j, *_: (b, h, i, 0)
-            )
-        )
-
-    if causal and not has_pos:
-        # Above-diagonal steps re-reference the diagonal block so their
-        # HBM->VMEM DMAs are elided (flash_fwd clamp analog).
-        def kv_map(b, h, i, j, off_ref, *_):
-            diag = (
-                ((i + 1) * block_q - 1) // pos_div + off_ref[b]
-            ) // block_k
-            j_eff = jnp.minimum(j, diag)
-            if window is not None and not sinks:
-                j_min = (
-                    (i * block_q) // pos_div + off_ref[b] - window + 1
-                ) // block_k
-                j_eff = jnp.maximum(j_eff, j_min)
-            j_eff = jnp.clip(j_eff, 0, num_kv - 1)
-            return (b, h // kv_group, j_eff, 0)
-
-    else:
-        def kv_map(b, h, i, j, *_):
-            return (b, h // kv_group, j, 0)
-
-    in_specs = [
-        pl.BlockSpec(
-            (1, 1, block_q, head_dim), lambda b, h, i, j, *_: (b, h, i, 0)
-        ),
-        pl.BlockSpec((1, 1, block_k, head_dim), kv_map),
-        pl.BlockSpec((1, 1, block_k, head_dim), kv_map),
-        pl.BlockSpec((1, 1, scale_rows, NUM_LANES), kv_map),
-        pl.BlockSpec((1, 1, scale_rows, NUM_LANES), kv_map),
-    ]
-    inputs = [q, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale]
-    if has_pos:
-        kvpos = jax.lax.broadcast_in_dim(
-            kv_positions.astype(jnp.int32),
-            (batch, NUM_SUBLANES, n_kv),
-            (0, 2),
-        )
-
-        def kvpos_map(b, h, i, j, *args):
-            bb, hh, jj, _ = kv_map(b, h, i, j, *args)
-            return (bb, 0, jj)
-
-        in_specs.append(pl.BlockSpec((1, NUM_SUBLANES, block_k), kvpos_map))
-        inputs.append(kvpos)
-    scalar_args = [q_offset]
-    if has_alibi:
-        # Per-q-head fp32 slopes via scalar prefetch (flash_fwd analog).
-        scalar_args.append(
-            jnp.asarray(alibi_slopes, jnp.float32).reshape(heads)
-        )
-
-    flops = 4 * batch * heads * n_q * n_kv * head_dim
-    results = pl.pallas_call(
-        kernel,
-        out_shape=out_shapes,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=len(scalar_args),
-            grid=grid,
-            in_specs=in_specs,
-            out_specs=out_specs,
-            scratch_shapes=[
-                pltpu.VMEM((block_q, NUM_LANES), jnp.float32),
-                pltpu.VMEM((block_q, NUM_LANES), jnp.float32),
-                pltpu.VMEM((block_q, head_dim), jnp.float32),
-            ],
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=32 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=flops // (2 if causal else 1),
-            bytes_accessed=(
-                2 * q.size * q.dtype.itemsize
-                + qkv.k_q.size
-                + qkv.v_q.size
-                + qkv.k_scale.size * 4
-                + qkv.v_scale.size * 4
-            ),
-            transcendentals=batch * heads * n_q * n_kv // (2 if causal else 1),
-        ),
-        interpret=interpret,
-    )(*scalar_args, *inputs)
-
-    if save_lse:
-        return results[0], results[1]
-    return results[0]

@@ -8,13 +8,13 @@ factors ``W + (alpha/r) * A @ B``, so a full pretrained checkpoint (e.g.
 one loaded via ``models.convert``) can be adapted while touching only
 ~0.1-1% of its parameters.
 
-TPU-first design choices:
+Design choices:
 
 * Adapters are a plain pytree mirroring the targeted weight names, so
   every existing tool — optax, ``utils.checkpoint``, the mesh sharding
   helpers — applies unchanged.
 * The merged weight ``W + s*A@B`` is materialized *inside* jit: a
-  ``(d, r) @ (r, d)`` matmul is a trivially MXU-tiled rank-r update and
+  ``(d, r) @ (r, d)`` matmul is a cheap rank-r update and
   XLA fuses the add into the consumer, so the forward stays the plain
   FlashLM forward (no per-call ``x@A@B`` detour, no second code path for
   attention/decode/serving — ``merge_lora`` output drops straight into
@@ -89,7 +89,7 @@ def merge_lora(
     """Base params with ``W + (alpha/r) * A @ B`` folded in.
 
     Pure function of both pytrees; safe under jit (the rank-r update is
-    a cheap MXU matmul). The result is an ordinary FlashLM param tree —
+    a cheap matmul). The result is an ordinary FlashLM param tree —
     use it for training losses, serving engines, or checkpoint export.
     """
     s = lcfg.scale

@@ -42,11 +42,12 @@ def blockwise_softmax_xent(
 
     Scans vocab chunks with an online logsumexp; the body is
     rematerialized so no [B, T, chunk] logit block survives to the
-    backward pass.
+    backward pass.  ``vocab_chunk`` is an upper bound: the chunk is its
+    largest divisor of the vocabulary (Llama-3's 128256 takes 4008).
     """
     d, v = lm_head.shape
-    if v % vocab_chunk:
-        raise ValueError(f"vocab {v} not divisible by chunk {vocab_chunk}")
+    vocab_chunk = max(c for c in range(1, min(vocab_chunk, v) + 1)
+                      if v % c == 0)
     n_chunks = v // vocab_chunk
     b, t = targets.shape
     hf = hidden.astype(lm_head.dtype)

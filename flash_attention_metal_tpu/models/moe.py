@@ -1,20 +1,20 @@
 """Mixture-of-Experts FlashLM with expert parallelism (ep).
 
 The reference has no MoE (SURVEY.md §2 parallelism table: EP "N/A");
-this module adds the fifth parallelism family TPU-natively, in the
-GShard/Switch dense-dispatch style that maps onto the MXU:
+this module adds the fifth parallelism family, in the GShard/Switch
+dense-dispatch style that turns routing into matrix products:
 
 * **router**: fp32 top-k softmax gating per token, gates renormalized
   over the kept k; Switch-style load-balance auxiliary loss
   ``E * Σ_e f_e · p_e``.
 * **dispatch**: capacity-bucketed one-hot dispatch/combine tensors
   ``[T, E, C]`` built with cumsum ranks — everything is a dense einsum
-  (no scatter/gather, no dynamic shapes), which is exactly what XLA
-  tiles onto the MXU.  Tokens past capacity are dropped from the MLP
+  (no scatter/gather, no dynamic shapes), which XLA hands to its
+  matrix-product kernels.  Tokens past capacity are dropped from the MLP
   and ride the residual stream (standard Switch semantics).
 * **expert parallelism**: experts shard over the ``ep`` mesh axis; the
   dispatched ``[E, C, d]`` blocks move with ONE tiled ``all_to_all``
-  each way (device ↔ expert transpose over ICI), the canonical MoE
+  each way (device ↔ expert transpose between devices), the canonical MoE
   collective.  ``ep`` doubles as a data axis for the non-expert layers
   (tokens shard over ``dp × ep``), so no activation is replicated.
 * **composition**: the mesh is ``('dp', 'ep', 'tp', 'sp')`` — the
@@ -48,7 +48,7 @@ class MoEConfig(ModelConfig):
     n_experts: int = 8
     top_k: int = 2
     # capacity per expert = ceil(top_k * T / E * capacity_factor),
-    # rounded up to a multiple of 8 (sublane alignment).
+    # rounded up to a multiple of 8.
     capacity_factor: float = 1.25
     # Switch load-balance aux loss weight.
     aux_loss_weight: float = 1e-2
@@ -221,7 +221,7 @@ def _moe_mlp(layer, x, cfg: MoEConfig, ep_size: int, tp_size: int):
     cap = _capacity(t, cfg)
     dispatch, combine, aux_stats = topk_dispatch(probs, cfg.top_k, cap)
 
-    # [T, E, C] x [T, d] -> [E, C, d]: dense MXU dispatch.
+    # [T, E, C] x [T, d] -> [E, C, d]: dense dispatch as one matmul.
     xe = jnp.einsum("tec,td->ecd", dispatch.astype(dt), h)
 
     if ep_size > 1:

@@ -3,9 +3,8 @@
 Muon (Jordan et al. 2024, "Muon: an optimizer for the hidden layers of
 neural networks") replaces each 2-D weight's momentum update with its
 nearest orthogonal matrix, approximated by a quintic Newton-Schulz
-iteration — all matmuls, so the whole optimizer step runs on the MXU
-(no SVD, no host round-trip), which is exactly the property that makes
-it a TPU-native fit.  Non-matrix parameters (embeddings, norms, the
+iteration — all matmuls, so the whole optimizer step runs on the
+matrix units (no SVD, no host round-trip).  Non-matrix parameters (embeddings, norms, the
 lm_head) keep AdamW, following the reference implementation's split.
 
 Exposed two ways:
@@ -38,7 +37,7 @@ def newton_schulz_orthogonalize(
     maximizes the slope at zero; after ~5 iterations singular values land
     in roughly [0.7, 1.2] — "orthogonal enough" for the optimizer (exact
     orthogonality is not required, per the Muon derivation).  Runs in
-    bf16 on the MXU like the reference implementation, fp32 in/out.
+    bf16 matmuls like the reference implementation, fp32 in/out.
     """
     if g.ndim != 2:
         raise ValueError(f"expected a 2-D matrix, got shape {g.shape}")

@@ -1,7 +1,7 @@
 """Manually-sharded (dp x tp x sp) training step for FlashLM.
 
 The reference has no distribution at all (SURVEY.md §2 parallelism table);
-this module is the TPU-native scaling story end-to-end: one ``shard_map``
+this module is the scaling story end-to-end: one ``shard_map``
 over a 3-axis mesh, with every collective explicit —
 
 * **dp** (data):      batch sharded; gradient ``psum`` at the end.
@@ -109,11 +109,11 @@ def _tp_attention(
         seedvec = jnp.zeros((5,), jnp.int32)
     if sp_attn == "ring":
         # Sequence-parallel attention via the reverse-ring custom VJP:
-        # KV (and dK/dV in the backward) rotate over ICI instead of an
-        # all-gather -- peak memory O(n_local) instead of O(n_global).
+        # KV (and dK/dV in the backward) rotate between devices instead
+        # of an all-gather -- peak memory O(n_local) instead of O(n_global).
         o = ring_flash_attention_diff(
             q, k, v, seedvec, "sp", sp_size, True, None, cfg.block_sizes,
-            None, rate, cfg.n_heads if rate else None,
+            rate, cfg.n_heads if rate else None,
         )
     else:
         # All-gather KV over sp, per-shard causal offset handled inside.

@@ -2,7 +2,7 @@
 
 The reference has no multi-device parallelism at all (SURVEY.md §2
 parallelism table; pipeline parallel explicitly absent).  This module
-adds the fourth mesh axis TPU-natively: a GPipe-style microbatch
+adds the fourth mesh axis: a GPipe-style microbatch
 pipeline expressed as ONE ``lax.scan`` over schedule ticks inside ONE
 ``shard_map`` over a ``('dp', 'pp', 'tp', 'sp')`` mesh —
 
@@ -12,7 +12,7 @@ pipeline expressed as ONE ``lax.scan`` over schedule ticks inside ONE
   via ``jax.checkpoint``).
 * **schedule**: ``T = n_micro + pp - 1`` ticks.  Every tick each stage
   processes its in-flight microbatch and hands the activation to the
-  next stage with a ``ppermute`` — the ICI ring carries exactly one
+  next stage with a ``ppermute`` — the device ring carries exactly one
   ``[mb, n_loc/sp, d]`` tensor per tick per stage boundary.  Stage 0
   injects microbatch ``t``; the last stage banks its result at tick
   ``t >= pp-1``.  Bubble ticks compute on garbage and are masked out —

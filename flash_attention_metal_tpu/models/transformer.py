@@ -3,7 +3,7 @@
 The reference is a kernel study with no model layer (SURVEY.md §2); this
 module is the production context those kernels exist for: a GQA
 decoder-only LM whose every attention call is the framework's flash
-kernel ladder.  Design choices are TPU-first:
+attention op.  Design choices:
 
 * functional pytree params + pure functions (jit/pjit/shard_map friendly)
 * RMSNorm + SwiGLU + RoPE (all fuse into XLA-friendly elementwise chains)

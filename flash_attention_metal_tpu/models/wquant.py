@@ -9,9 +9,9 @@ never had.
 
 Scheme: symmetric per-output-channel int8.  Each targeted 2-D weight
 ``W[din, dout]`` becomes ``{"qw": int8, "scale": f32[1, dout]}`` with
-``scale_j = max_i |W_ij| / 127``; consumers rebuild ``qw * scale`` in
-VMEM via :func:`flash_attention_metal_tpu.models.transformer.weight`
-(XLA fuses the dequant into the matmul operand load, so HBM sees int8).
+``scale_j = max_i |W_ij| / 127``; consumers rebuild ``qw * scale`` via
+:func:`flash_attention_metal_tpu.models.transformer.weight` (XLA fuses
+the dequant into the matmul operand load, so HBM sees int8).
 The quantized tree is a drop-in FlashLM param tree for ``forward`` and
 the whole dense/dp serving stack (prefill, decode, ``DecodeEngine``,
 composes with int8/paged KV and speculative decoding).  Training and

@@ -7,20 +7,22 @@ FA-2 backward kernels (``flash_bwd.py``) to the forward's logsumexp
 residual, the way the reference's V4 forward feeds its backward kernel
 (``kernels.metal:861-864`` -> ``kernels.metal:993-996``).
 
-Implementations:
+Implementations (``impl``):
 
-* ``impl="pallas"``   — the MXU flash kernel ladder (default on TPU).
-* ``impl="xla"``      — pure-jnp fallback (differentiable via autodiff);
-                        used on CPU for fast sharding tests and as a
-                        cross-check.
-* ``impl="auto"``     — pallas on TPU, pallas-interpret elsewhere.
-
-GQA/MQA (fewer KV heads than Q heads) is supported by logical broadcast of
-the KV heads.
+* ``"pallas"`` — the Triton-route flash kernels (``kernels/``); every
+  feature, GQA without a K/V broadcast.
+* ``"xla"``    — the plain jnp path (``reference/oracle.py``, autodiff
+  backward); materialises ``[B, H, N, N]`` scores.
+* ``"cudnn"``  — ``jax.nn.dot_product_attention(implementation="cudnn")``
+  for the calls it covers (``cudnn_covers``: half precision, causal or
+  not, GQA, no other feature).
+* ``"auto"``   — ``select_impl``: cuDNN where it covers the call on the
+  GPU, the Pallas kernel otherwise.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 from typing import Optional, Tuple, Union
 
@@ -29,270 +31,185 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..config import BlockSizes, default_scale
-from ..kernels.flash_bwd import flash_attention_bwd_auto
+from ..kernels._common import pack_dropout_seed
+from ..kernels.flash_bwd import flash_attention_bwd
 from ..kernels.flash_fwd import flash_attention_fwd
 from ..reference.oracle import attention_reference, attention_reference_with_lse
 
+IMPLS = ("pallas", "xla", "cudnn")
 
-def _use_interpret() -> bool:
-    return jax.default_backend() != "tpu"
+
+def cudnn_covers(
+    *, dtype, head_dim, save_lse=False, window=None, sinks=0,
+    segment_ids=None, softcap=None, alibi_slopes=None, dropout_rate=0.0,
+    kv_positions=None, q_offset=None, n_q=None, n_kv=None,
+) -> bool:
+    """Whether cuDNN's fused attention runs the call, as measured: half
+    precision, head dim <= 128, causal or not, GQA, no other feature."""
+    return (
+        jnp.dtype(dtype) in (jnp.dtype(jnp.bfloat16), jnp.dtype(jnp.float16))
+        and head_dim % 8 == 0
+        and head_dim <= 128
+        and not save_lse
+        and window is None
+        and not sinks
+        and segment_ids is None
+        and softcap is None
+        and alibi_slopes is None
+        and not dropout_rate
+        and kv_positions is None
+        and q_offset is None
+        and n_q == n_kv
+    )
+
+
+def select_impl(**features) -> str:
+    """The end ``impl="auto"`` takes for a call with ``features``
+    (``cudnn_covers``'s keywords).
+
+    Off the GPU there is only the Pallas kernel (interpreted on request,
+    see ``kernels._common.pallas_interpret``).  On the GPU: cuDNN wherever
+    it covers the call, the Triton kernel for every other call; the plain
+    XLA path was slowest in every measured case (CHANGES.md).  cuDNN won
+    forward + backward and non-causal forward on an H100.  The Triton
+    kernel was faster on causal forward alone, but the op cannot tell a
+    forward-only call from one that will be differentiated, so a covered
+    causal call takes cuDNN either way.  Decode does not come here: the
+    serving paths call the decode kernels directly.
+    """
+    if jax.default_backend() == "gpu" and cudnn_covers(**features):
+        return "cudnn"
+    return "pallas"
+
+
+# The end each traced call took, by call kind: counted when the call is
+# traced, so a compiled program counts once per call site.  Read with
+# ``traced_ends`` (the smoke run prints it per phase).
+_ENDS: collections.Counter = collections.Counter()
+
+
+def note_end(kind: str, end: str) -> None:
+    """Count a traced call of ``kind`` that took ``end``."""
+    _ENDS[(kind, end)] += 1
+
+
+def traced_ends(clear: bool = False) -> dict:
+    """``{(call kind, end): traced calls}`` since the last clear."""
+    out = dict(_ENDS)
+    if clear:
+        _ENDS.clear()
+    return out
+
+
+def _call_kind(causal, q_offset, kv_positions) -> str:
+    if kv_positions is not None:
+        return "rolling cache"
+    if q_offset is not None:
+        return "causal, q_offset" if causal else "q_offset"
+    return "causal" if causal else "non-causal"
 
 
 @functools.partial(
-    jax.custom_vjp, nondiff_argnums=(7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17)
+    jax.custom_vjp, nondiff_argnums=(7, 8, 9, 10, 11, 12, 13, 14, 15)
 )
 def _flash_core(
     q, k, v, q_offset, alibi_slopes, dropout_seed, segment_ids,
     causal, window, sinks, sm_scale, softcap, dropout_rate, dropout_heads,
-    block_sizes, save_lse, lazy_softmax, interpret,
+    block_sizes, save_lse,
 ):
     """The one differentiable attention primitive behind the public op.
 
     Every capability rides a single custom_vjp: causal/window/sinks,
     packed segments, tanh softcap, ALiBi (with d/d(slopes)), in-kernel
-    dropout, and the optional differentiable logsumexp output — all on
-    the Pallas kernel pair, never through an O(N^2) score tensor (the
-    round-3 `_flash_ext` oracle-VJP fallback is gone).
+    dropout, GQA, and the optional differentiable logsumexp output — all
+    on the Pallas kernel pair, never through an O(N^2) score tensor.
 
-    ``dropout_seed`` is None when ``dropout_rate == 0`` (an empty-pytree
-    arg whose cotangent is None); with dropout it is the packed
-    ``[seed, row_off, col_off, b_off, h_off]`` int32 vector
+    ``dropout_seed`` is None when ``dropout_rate == 0``; with dropout it
+    is the packed ``[seed, row_off, col_off, b_off, h_off]`` int32 vector
     (``kernels._common.pack_dropout_seed``) — traced, so a new seed every
     train step costs no recompile — and the backward kernels regenerate
-    the identical mask from it (FA-2 capability; the reference has none).
-    ``dropout_heads`` is the static global head count for the (b, h) hash
-    stream (None == local heads).
+    the identical mask from it.
     """
-    out = flash_attention_fwd(
-        q,
-        k,
-        v,
-        q_offset,
-        sm_scale=sm_scale,
-        causal=causal,
-        window=window,
-        sinks=sinks,
-        segment_ids=segment_ids,
-        block_sizes=block_sizes,
-        save_lse=save_lse,
-        lazy_softmax=lazy_softmax,
-        softcap=softcap,
-        alibi_slopes=alibi_slopes,
-        dropout_rate=dropout_rate,
-        dropout_seed=dropout_seed,
-        dropout_heads=dropout_heads,
-        interpret=interpret,
+    out, _ = _flash_core_fwd_rule(
+        q, k, v, q_offset, alibi_slopes, dropout_seed, segment_ids,
+        causal, window, sinks, sm_scale, softcap, dropout_rate,
+        dropout_heads, block_sizes, save_lse,
     )
-    if save_lse:
-        return out[0], out[1][..., 0]
     return out
 
 
 def _flash_core_fwd_rule(
     q, k, v, q_offset, alibi_slopes, dropout_seed, segment_ids,
     causal, window, sinks, sm_scale, softcap, dropout_rate, dropout_heads,
-    block_sizes, save_lse, lazy_softmax, interpret,
+    block_sizes, save_lse,
 ):
-    o, lse_lanes = flash_attention_fwd(
-        q,
-        k,
-        v,
-        q_offset,
-        sm_scale=sm_scale,
-        causal=causal,
-        window=window,
-        sinks=sinks,
-        segment_ids=segment_ids,
-        block_sizes=block_sizes,
-        save_lse=True,
-        lazy_softmax=lazy_softmax,
-        softcap=softcap,
-        alibi_slopes=alibi_slopes,
-        dropout_rate=dropout_rate,
-        dropout_seed=dropout_seed,
+    o, lse = flash_attention_fwd(
+        q, k, v, q_offset,
+        sm_scale=sm_scale, causal=causal, window=window, sinks=sinks,
+        segment_ids=segment_ids, block_sizes=block_sizes, save_lse=True,
+        softcap=softcap, alibi_slopes=alibi_slopes,
+        dropout_rate=dropout_rate, dropout_seed=dropout_seed,
         dropout_heads=dropout_heads,
-        interpret=interpret,
     )
     res = (q, k, v, q_offset, alibi_slopes, dropout_seed, segment_ids, o,
-           lse_lanes)
-    primal = (o, lse_lanes[..., 0]) if save_lse else o
-    return primal, res
-
-
-def _grads_from_residuals(
-    residuals, do, dlse, *, causal, window, sinks, sm_scale, softcap,
-    block_sizes, interpret, dropout_rate=0.0, dropout_heads=None,
-):
-    """Shared FA-2 backward with native GQA.
-
-    GQA (fewer KV heads) has two equivalent paths, routed by measurement:
-
-    - **row-fold**: each KV head's ``group`` query heads fold into
-      adjacent rows of one tile (``fold_gqa_rows``; kernel ``pos_div``
-      masking — the backward twin of the round-3 decode head-fold), so
-      the dKdV kernel reads each K/V block ONCE per KV head and its VMEM
-      accumulator already sums the whole group — no ``jnp.repeat`` K/V
-      broadcast in HBM, no group-x dK/dV materialization, no reduce
-      pass.  The price: 5 full Q-sized HBM transposes (fold q/o/do/lse,
-      unfold dq).
-    - **broadcast**: ``jnp.repeat`` K/V to the q-head count, group-sum
-      dK/dV after.  Group-x K/V materialization, but no transposes.
-
-    At the flagship training shape (B16 Hq16 Hkv8 N2048, group 2) the
-    fold measured 9% SLOWER paired (experiments/gqa_bwd_pair.json): the
-    transposes outweigh a mere 2x K/V saving.  Small groups (< 4)
-    therefore default to broadcast, large groups to fold; a raced
-    autotune-cache entry (``lookup_gqa_bwd_route``) overrides either.
-    ALiBi and dropout always take broadcast (per-row slopes /
-    fold-variant mask coordinates).
-    """
-    (q, k, v, q_offset, alibi_slopes, dropout_seed, segment_ids, o,
-     lse_lanes) = residuals
-    h_q, h_kv = q.shape[1], k.shape[1]
-    reps = h_q // h_kv
-    has_alibi = alibi_slopes is not None
-    d_slopes = None
-    common = dict(
-        sm_scale=sm_scale,
-        causal=causal,
-        window=window,
-        sinks=sinks,
-        softcap=softcap,
-        block_sizes=block_sizes,
-        dropout_rate=dropout_rate,
-        dropout_seed=dropout_seed,
-        dropout_heads=dropout_heads,
-        interpret=interpret,
-    )
-    use_fold = reps > 1 and not has_alibi and not dropout_rate
-    if use_fold:
-        # Route fold-vs-broadcast by measurement: the fold halves-to-
-        # eighths the K/V HBM traffic but pays 5 full Q-sized transposes
-        # (fold q/o/do/lse + unfold dq); paired measurement at the
-        # flagship training shape (B16 Hq16 Hkv8 N2048, group 2) put the
-        # fold 9% BEHIND broadcast (experiments/gqa_bwd_pair.json), so
-        # small groups default to broadcast and large groups (>= 4,
-        # where repeat's group-x materialization dominates) to fold; a
-        # raced per-topology cache entry overrides either default.
-        route = None
-        try:
-            from ..harness.autotune import lookup_gqa_bwd_route
-
-            route = lookup_gqa_bwd_route(
-                h_q, h_kv, q.shape[2], q.shape[3], causal, q.dtype
-            )
-        except (OSError, KeyError, ValueError, TypeError):
-            route = None
-        if route is None:
-            route = "fold" if reps >= 4 else "broadcast"
-        use_fold = route == "fold"
-    if use_fold:
-        n_q = q.shape[2]
-        seg = segment_ids
-        if seg is not None:
-            # Folded row t*group + g sits at position t: repeat the Q ids.
-            from ..config import SegmentIds
-
-            seg = SegmentIds(
-                q=jnp.repeat(seg.q, reps, axis=1), kv=seg.kv
-            )
-        dlse_f = (
-            None
-            if dlse is None
-            else fold_gqa_rows(dlse[..., None], h_kv)[..., 0]
-        )
-        dqf, dk, dv = flash_attention_bwd_auto(
-            fold_gqa_rows(q, h_kv),
-            k,
-            v,
-            fold_gqa_rows(o, h_kv),
-            fold_gqa_rows(do, h_kv),
-            fold_gqa_rows(lse_lanes, h_kv),
-            q_offset,
-            dlse_f,
-            segment_ids=seg,
-            pos_div=reps,
-            **common,
-        )
-        dq = unfold_gqa_rows(dqf, h_q, n_q)
-        dk = dk.astype(k.dtype)
-        dv = dv.astype(v.dtype)
-    else:
-        kb, vb = _broadcast_kv_heads(q, k, v)
-        out = flash_attention_bwd_auto(
-            q,
-            kb,
-            vb,
-            o,
-            do,
-            lse_lanes,
-            q_offset,
-            dlse,
-            segment_ids=segment_ids,
-            alibi_slopes=alibi_slopes,
-            **common,
-        )
-        dq, dk, dv = out[:3]
-        if has_alibi:
-            d_slopes = out[3].astype(alibi_slopes.dtype)
-        if reps > 1:
-            b, _, n, d = dk.shape
-            dk = dk.reshape(b, h_kv, reps, n, d).sum(axis=2).astype(k.dtype)
-            dv = dv.reshape(b, h_kv, reps, n, d).sum(axis=2).astype(v.dtype)
-    # Integer offsets/segment-ids get float0 cotangents.
-    d_off = np.zeros(np.shape(q_offset), jax.dtypes.float0)
-    d_seg = (
-        None
-        if segment_ids is None
-        else jax.tree_util.tree_map(
-            lambda x: np.zeros(np.shape(x), jax.dtypes.float0), segment_ids
-        )
-    )
-    return dq, dk, dv, d_off, d_slopes, d_seg
+           lse)
+    return ((o, lse) if save_lse else o), res
 
 
 def _flash_core_bwd_rule(
     causal, window, sinks, sm_scale, softcap, dropout_rate, dropout_heads,
-    block_sizes, save_lse, lazy_softmax, interpret, residuals, cts,
+    block_sizes, save_lse, residuals, cts,
 ):
+    (q, k, v, q_offset, alibi_slopes, dropout_seed, segment_ids, o,
+     lse) = residuals
     do, dlse = cts if save_lse else (cts, None)
-    dropout_seed = residuals[5]
-    dq, dk, dv, d_off, d_slopes, d_seg = _grads_from_residuals(
-        residuals,
-        do,
-        dlse,
-        causal=causal,
-        window=window,
-        sinks=sinks,
-        sm_scale=sm_scale,
-        softcap=softcap,
-        block_sizes=block_sizes,
-        interpret=interpret,
-        dropout_rate=dropout_rate,
-        dropout_heads=dropout_heads,
+    grads = flash_attention_bwd(
+        q, k, v, o, do, lse, q_offset, dlse,
+        sm_scale=sm_scale, causal=causal, window=window, sinks=sinks,
+        segment_ids=segment_ids, block_sizes=block_sizes, softcap=softcap,
+        alibi_slopes=alibi_slopes, dropout_rate=dropout_rate,
+        dropout_seed=dropout_seed, dropout_heads=dropout_heads,
     )
-    d_seed = (
+    dq, dk, dv = grads[:3]
+    d_slopes = None
+    if alibi_slopes is not None:
+        d_slopes = grads[3].astype(alibi_slopes.dtype)
+
+    def float0(x):
+        return np.zeros(np.shape(x), jax.dtypes.float0)
+
+    d_seg = (
         None
-        if dropout_seed is None
-        else np.zeros(np.shape(dropout_seed), jax.dtypes.float0)
+        if segment_ids is None
+        else jax.tree_util.tree_map(float0, segment_ids)
     )
-    return dq, dk, dv, d_off, d_slopes, d_seed, d_seg
+    d_seed = None if dropout_seed is None else float0(dropout_seed)
+    return dq, dk, dv, float0(q_offset), d_slopes, d_seed, d_seg
 
 
 _flash_core.defvjp(_flash_core_fwd_rule, _flash_core_bwd_rule)
 
 
 def _broadcast_kv_heads(q: jax.Array, k: jax.Array, v: jax.Array):
-    """GQA/MQA: replicate KV heads up to the Q head count."""
+    """GQA/MQA: replicate KV heads up to the Q head count (plain path)."""
     h_q, h_kv = q.shape[1], k.shape[1]
     if h_q == h_kv:
         return k, v
-    if h_q % h_kv != 0:
-        raise ValueError(f"q heads ({h_q}) must be a multiple of kv heads ({h_kv})")
     reps = h_q // h_kv
-    k = jnp.repeat(k, reps, axis=1)
-    v = jnp.repeat(v, reps, axis=1)
-    return k, v
+    return jnp.repeat(k, reps, axis=1), jnp.repeat(v, reps, axis=1)
+
+
+def _cudnn_attention(q, k, v, *, causal, sm_scale):
+    """cuDNN fused attention on ``[B, H, N, D]`` inputs (BNHD inside)."""
+    o = jax.nn.dot_product_attention(
+        q.transpose(0, 2, 1, 3),
+        k.transpose(0, 2, 1, 3),
+        v.transpose(0, 2, 1, 3),
+        scale=sm_scale,
+        is_causal=causal,
+        implementation="cudnn",
+    )
+    return o.transpose(0, 2, 1, 3)
 
 
 def flash_attention(
@@ -311,13 +228,11 @@ def flash_attention(
     alibi_slopes: Optional[jax.Array] = None,
     block_sizes: Optional[BlockSizes] = None,
     save_lse: bool = False,
-    lazy_softmax: bool = True,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[jax.Array] = None,
     dropout_offsets=None,
     dropout_heads: Optional[int] = None,
     impl: str = "auto",
-    interpret: Optional[bool] = None,
 ) -> Union[jax.Array, Tuple[jax.Array, jax.Array]]:
     """Differentiable flash attention over ``[B, H, N, D]`` inputs.
 
@@ -325,13 +240,13 @@ def flash_attention(
       q: ``[batch, q_heads, n_q, head_dim]``.
       k, v: ``[batch, kv_heads, n_kv, head_dim]`` (kv_heads may divide
         q_heads for GQA/MQA).
-      q_offset: optional int32 scalar (may be traced): with ``causal``,
-        query row r attends to key cols c <= r + q_offset.  Defaults to
-        ``n_kv - n_q`` (end-aligned diagonals).
+      q_offset: optional int32 scalar or per-batch ``[B]`` vector (may be
+        traced): with ``causal``, query row r attends to key cols
+        c <= r + q_offset.  Defaults to ``n_kv - n_q`` (end-aligned).
       causal: apply causal masking.
       window: with causal, restrict each row to its last ``window``
         visible keys (sliding-window attention); out-of-window blocks are
-        skipped and their DMAs elided.
+        never loaded.
       segment_ids: optional ``config.SegmentIds`` for packed sequences
         (tokens attend only within equal ids).
       sinks: with window, keep the first ``sinks`` positions visible
@@ -342,40 +257,27 @@ def flash_attention(
       sm_scale: softmax scale; defaults to ``1/sqrt(head_dim)``.
       softcap: optional tanh logit cap (Gemma-2 style) on the scaled
         scores: ``s = softcap * tanh(s / softcap)``.  Differentiable
-        in-kernel: the backward replays the cap in its score recompute
-        and chains dS through ``1 - tanh^2`` — no O(N^2) score tensor.
+        in-kernel.
       alibi_slopes: optional ``[q_heads]`` fp32 ALiBi slopes adding the
         linear position bias ``slope * (col - row - q_offset)``.
-        Differentiable, including d/d(slopes) (an in-kernel masked
-        reduce of dS * distance).
-      block_sizes: kernel tile configuration (see ``config.BlockSizes``).
+        Differentiable, including d/d(slopes).
+      block_sizes: kernel tiles (see ``config.BlockSizes``).
       save_lse: also return per-row logsumexp ``[B, H, N_q]`` (fp32).
-        Both outputs are differentiable (the lse cotangent folds into the
-        backward's delta precompute).
-      lazy_softmax: use the lagged-base online softmax (faster; see
-        ``flash_fwd.flash_attention_fwd``).  Set False for the classic
-        eager variant, exact at any score magnitude.
-      dropout_rate: attention-probability dropout (FA-2 capability the
-        reference lacks).  The keep mask {0, 1/(1-rate)} is a stateless
-        hash of ``dropout_seed`` (traced int32 scalar — new seed each
-        step, no recompile) and absolute coordinates; the backward
-        kernels regenerate it bit-exactly, so no mask tensor ever hits
-        HBM.  Training-path feature: composes with causal/window/GQA/
-        segment_ids/softcap/alibi/save_lse; NOT with kv_positions
-        (rolling-cache serving has no dropout).
+        Both outputs are differentiable.
+      dropout_rate: attention-probability dropout.  The keep mask
+        {0, 1/(1-rate)} is a stateless hash of ``dropout_seed`` (traced
+        int32 scalar — new seed each step, no recompile) and absolute
+        coordinates; the backward kernels regenerate it bit-exactly, so
+        no mask tensor ever hits HBM.  Not with ``kv_positions``.
       dropout_seed: int32 scalar; required when ``dropout_rate > 0``.
       dropout_offsets: optional ``(row, col, batch, head)`` int32 scalars
         (traced OK) translating shard-local coordinates to GLOBAL ones
-        under ``shard_map``: sequence shards pass their row/col origins,
-        dp/tp shards their batch/head origins.  With the right offsets
-        (plus ``dropout_heads``) every mesh factorization regenerates
-        the exact single-device mask — sharding-invariant dropout.
+        under ``shard_map``, so every mesh factorization regenerates the
+        exact single-device mask.
       dropout_heads: static global head count for the (b, h) hash stream
         (required for exactness under tp head sharding; defaults to the
         local head count).
-      impl: "pallas" | "xla" | "auto".
-      interpret: force Pallas interpreter mode (default: auto-detect
-        non-TPU backends).
+      impl: "auto" | "pallas" | "xla" | "cudnn" (see the module doc).
 
     Returns:
       ``o`` with the shape/dtype of ``q``, or ``(o, lse)``.
@@ -389,14 +291,29 @@ def flash_attention(
             f"q heads ({q.shape[1]}) must be a multiple of kv heads "
             f"({k.shape[1]})"
         )
+    features = dict(
+        dtype=q.dtype, head_dim=q.shape[-1], save_lse=save_lse, window=window, sinks=sinks,
+        segment_ids=segment_ids, softcap=softcap, alibi_slopes=alibi_slopes,
+        dropout_rate=dropout_rate, kv_positions=kv_positions,
+        q_offset=q_offset, n_q=q.shape[2], n_kv=k.shape[2],
+    )
+    if impl == "auto":
+        impl = select_impl(**features)
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}")
+    # The rolling-cache path below runs the kernel whatever the impl.
+    note_end(_call_kind(causal, q_offset, kv_positions),
+             "pallas" if kv_positions is not None else impl)
+    if impl == "cudnn":
+        if not cudnn_covers(**features):
+            raise NotImplementedError(
+                "impl='cudnn' covers half-precision causal/non-causal "
+                "attention with GQA and head dim <= 128 only"
+            )
+        return _cudnn_attention(q, k, v, causal=causal, sm_scale=sm_scale)
     if q_offset is None:
         q_offset = k.shape[2] - q.shape[2]
     q_offset = jnp.asarray(q_offset, jnp.int32)
-
-    if impl == "auto":
-        impl = "pallas"
-    if interpret is None:
-        interpret = _use_interpret()
 
     if dropout_rate:
         if not 0.0 < dropout_rate < 1.0:
@@ -410,65 +327,34 @@ def flash_attention(
                 "dropout is a training-path feature; rolling-cache "
                 "(kv_positions) serving does not support it"
             )
-        from ..kernels._common import pack_dropout_seed
-
         dropout_seed = pack_dropout_seed(dropout_seed, dropout_offsets)
 
     if kv_positions is not None:
         # Rolling-cache serving path: forward-only, straight to the kernel.
         return flash_attention_fwd(
-            q,
-            k,
-            v,
-            q_offset,
-            sm_scale=sm_scale,
-            causal=causal,
-            window=window,
-            sinks=sinks,
-            kv_positions=kv_positions,
-            block_sizes=block_sizes,
-            save_lse=save_lse,
-            softcap=softcap,
-            alibi_slopes=alibi_slopes,
-            interpret=interpret,
+            q, k, v, q_offset,
+            sm_scale=sm_scale, causal=causal, window=window, sinks=sinks,
+            kv_positions=kv_positions, block_sizes=block_sizes,
+            save_lse=save_lse, softcap=softcap, alibi_slopes=alibi_slopes,
         )
 
     if impl == "xla":
         k, v = _broadcast_kv_heads(q, k, v)
+        if q_offset.ndim == 1:  # per-batch offsets broadcast over [H, N]
+            q_offset = q_offset[:, None, None, None]
+        common = dict(
+            causal=causal, sm_scale=sm_scale, q_offset=q_offset,
+            window=window, sinks=sinks, segment_ids=segment_ids,
+            softcap=softcap, alibi_slopes=alibi_slopes,
+        )
         if save_lse:
             if dropout_rate:
                 raise NotImplementedError("save_lse with dropout")
-            return attention_reference_with_lse(
-                q,
-                k,
-                v,
-                causal=causal,
-                sm_scale=sm_scale,
-                q_offset=q_offset,
-                window=window,
-                sinks=sinks,
-                segment_ids=segment_ids,
-                softcap=softcap,
-                alibi_slopes=alibi_slopes,
-            )
+            return attention_reference_with_lse(q, k, v, **common)
         return attention_reference(
-            q,
-            k,
-            v,
-            causal=causal,
-            sm_scale=sm_scale,
-            q_offset=q_offset,
-            window=window,
-            sinks=sinks,
-            segment_ids=segment_ids,
-            softcap=softcap,
-            alibi_slopes=alibi_slopes,
-            dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed,
-            dropout_heads=dropout_heads,
+            q, k, v, dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+            dropout_heads=dropout_heads, **common,
         )
-    if impl != "pallas":
-        raise ValueError(f"unknown impl {impl!r}")
 
     if alibi_slopes is not None:
         alibi_slopes = jnp.asarray(alibi_slopes, jnp.float32)
@@ -489,8 +375,6 @@ def flash_attention(
         dropout_heads if dropout_rate else None,
         block_sizes,
         save_lse,
-        lazy_softmax,
-        interpret,
     )
 
 
@@ -550,19 +434,16 @@ def gqa_decode_attention(
     sm_scale: Optional[float] = None,
     block_sizes: Optional[BlockSizes] = None,
     save_lse: bool = False,
-    interpret: Optional[bool] = None,
 ) -> Union[jax.Array, Tuple[jax.Array, jax.Array]]:
     """Head-folded GQA/MQA decode attention (forward-only, serving path).
 
     ``q``: ``[B, H_q, T, D]`` new-token queries at positions
-    ``q_offset[b] + t``; ``k, v``: ``[B, H_kv, N, D]`` cache.  The plain
-    kernel's GQA grid re-reads each KV block once per *q*-head
-    (index-map sharing dedups storage, not traffic), which multiplies
-    the HBM bytes of bandwidth-bound decode by ``group = H_q / H_kv``.
-    This wrapper folds each KV head's ``group`` query heads into
-    adjacent rows of one tile (kernel ``pos_div`` semantics: row ``r``
-    masks at position ``r // group``), so the KV stream is read ONCE per
-    KV head and the QK^T gets real sublane tiles instead of single rows.
+    ``q_offset[b] + t``; ``k, v``: ``[B, H_kv, N, D]`` cache.  A program
+    per query head would stream each KV head's cache ``group = H_q /
+    H_kv`` times; folding the group's query heads into adjacent rows of
+    one tile (kernel ``pos_div``: row ``r`` masks at position
+    ``r // group``) streams it once per KV head and gives the dots real
+    rows instead of one.
 
     Returns ``o`` shaped like ``q`` (and ``lse [B, H_q, T]``).
     Not composable with ALiBi (per-head slopes would need per-row
@@ -573,27 +454,12 @@ def gqa_decode_attention(
     if hq % hkv:
         raise ValueError(f"q heads ({hq}) not a multiple of kv heads ({hkv})")
     group = hq // hkv
-    if interpret is None:
-        interpret = _use_interpret()
-    if group == 1:
-        out = flash_attention_fwd(
-            q, k, v, q_offset, causal=True, window=window, sinks=sinks,
-            softcap=softcap, sm_scale=sm_scale, block_sizes=block_sizes,
-            save_lse=save_lse, interpret=interpret,
-        )
-        if save_lse:
-            return out[0], out[1][..., 0]
-        return out
-    qf = fold_gqa_rows(q, hkv)
+    note_end("GQA-folded decode", "pallas")
     out = flash_attention_fwd(
-        qf, k, v, q_offset, causal=True, window=window, sinks=sinks,
-        softcap=softcap, sm_scale=sm_scale, block_sizes=block_sizes,
-        save_lse=save_lse, pos_div=group, interpret=interpret,
+        fold_gqa_rows(q, hkv), k, v, q_offset, causal=True, window=window,
+        sinks=sinks, softcap=softcap, sm_scale=sm_scale,
+        block_sizes=block_sizes, save_lse=save_lse, pos_div=group,
     )
-    o = out[0] if save_lse else out
     if save_lse:
-        return (
-            unfold_gqa_rows(o, hq, t),
-            unfold_gqa_rows(out[1][..., 0], hq, t),
-        )
-    return unfold_gqa_rows(o, hq, t)
+        return unfold_gqa_rows(out[0], hq, t), unfold_gqa_rows(out[1], hq, t)
+    return unfold_gqa_rows(out, hq, t)

@@ -94,7 +94,6 @@ def lse_combine_attention(
     causal: bool = False,
     sm_scale: Optional[float] = None,
     block_sizes: Optional[BlockSizes] = None,
-    interpret: Optional[bool] = None,
     impl: str = "pallas",
 ) -> jax.Array:
     """Partial-attention + cross-chip logsumexp combine (forward only).
@@ -103,8 +102,6 @@ def lse_combine_attention(
     output is the replicated combined attention.  This is the decode
     topology: the new token's Q is broadcast, the KV cache is sharded.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     my = jax.lax.axis_index(axis_name)
     n_kv_loc = k.shape[2]
     n_q = q.shape[2]
@@ -119,7 +116,7 @@ def lse_combine_attention(
             q, k, v, causal=causal, sm_scale=sm_scale, q_offset=offset
         )
     else:
-        o_l, lse_lanes = flash_attention_fwd(
+        o_l, lse_l = flash_attention_fwd(
             q,
             k,
             v,
@@ -128,9 +125,7 @@ def lse_combine_attention(
             sm_scale=sm_scale,
             block_sizes=block_sizes,
             save_lse=True,
-            interpret=interpret,
         )
-        lse_l = lse_lanes[..., 0]
 
     return lse_psum_combine(o_l, lse_l, axis_name).astype(q.dtype)
 

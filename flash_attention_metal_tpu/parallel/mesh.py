@@ -2,8 +2,8 @@
 
 The reference is strictly single-device (one Metal GPU with unified memory
 as its only "interconnect", ``main.mm:104-115``); everything in this
-package is the TPU-native scaling layer the reference scoped out
-(``project_narrative.md:50-53``): ``jax.sharding.Mesh`` over ICI/DCN,
+package is the multi-device scaling layer the reference scoped out
+(``project_narrative.md:50-53``): ``jax.sharding.Mesh`` over the cards,
 named axes for data (dp), heads/tensor (tp), and sequence (sp)
 parallelism, with XLA collectives (`ppermute`, `all_gather`, `psum`,
 `all_to_all`) as the communication backend.

@@ -4,7 +4,7 @@ The mechanism is exactly the reference's online-softmax block merge
 (``kernels.metal:148-159,565-575``) lifted from intra-chip KV tiles to
 inter-chip KV *shards*: each device holds one contiguous KV shard, KV
 rotates around the ring via ``jax.lax.ppermute`` (point-to-point over
-ICI), and each step's partial attention — computed by the full local
+the interconnect), and each step's partial attention — computed by the full local
 flash kernel, which returns its logsumexp (``kernels.metal:861-864``) —
 is folded into the running (o, lse) with the identical rescale rule.
 
@@ -37,10 +37,11 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec
 
-from ..config import NUM_LANES, BlockSizes
+from ..config import BlockSizes
 from ..kernels._common import pack_dropout_seed
 from ..kernels.flash_bwd import flash_attention_bwd
 from ..kernels.flash_fwd import flash_attention_fwd
+from ..ops.attention import note_end
 from ..reference.oracle import attention_reference_with_lse
 
 
@@ -80,7 +81,6 @@ def ring_flash_attention(
     sm_scale: Optional[float] = None,
     block_sizes: Optional[BlockSizes] = None,
     save_lse: bool = False,
-    interpret: Optional[bool] = None,
     impl: str = "pallas",
     dropout_rate: float = 0.0,
     dropout_seed: Optional[jax.Array] = None,
@@ -101,10 +101,9 @@ def ring_flash_attention(
     single-device kernel's own convention: dropout applies to the
     normalized probabilities).
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     if dropout_rate and impl == "xla":
         raise NotImplementedError("ring dropout requires impl='pallas'")
+    note_end("sequence ring", "xla" if impl == "xla" else "pallas")
     n_loc = q.shape[2]
     if k.shape[2] != n_loc:
         raise ValueError("ring attention expects equal q/kv shard lengths")
@@ -132,7 +131,7 @@ def ring_flash_attention(
                 ),
                 dropout_heads=dropout_heads,
             )
-        o_, lse_lanes = flash_attention_fwd(
+        return flash_attention_fwd(
             q_,
             k_,
             v_,
@@ -141,10 +140,8 @@ def ring_flash_attention(
             sm_scale=sm_scale,
             block_sizes=block_sizes,
             save_lse=True,
-            interpret=interpret,
             **drop,
         )
-        return o_, lse_lanes[..., 0]
 
     perm = [(i, (i + 1) % axis_size) for i in range(axis_size)]
 
@@ -180,7 +177,7 @@ def ring_flash_attention(
 
 
 @functools.partial(
-    jax.custom_vjp, nondiff_argnums=(4, 5, 6, 7, 8, 9, 10, 11)
+    jax.custom_vjp, nondiff_argnums=(4, 5, 6, 7, 8, 9, 10)
 )
 def ring_flash_attention_diff(
     q,
@@ -192,7 +189,6 @@ def ring_flash_attention_diff(
     causal: bool,
     sm_scale: Optional[float],
     block_sizes: Optional[BlockSizes],
-    interpret: Optional[bool],
     dropout_rate: float = 0.0,
     dropout_heads: Optional[int] = None,
 ):
@@ -221,7 +217,6 @@ def ring_flash_attention_diff(
         causal=causal,
         sm_scale=sm_scale,
         block_sizes=block_sizes,
-        interpret=interpret,
         dropout_rate=dropout_rate,
         dropout_seed=dropout_seed,
         dropout_heads=dropout_heads,
@@ -230,7 +225,7 @@ def ring_flash_attention_diff(
 
 def _ring_diff_fwd(
     q, k, v, dropout_seed, axis_name, axis_size, causal, sm_scale,
-    block_sizes, interpret, dropout_rate=0.0, dropout_heads=None,
+    block_sizes, dropout_rate=0.0, dropout_heads=None,
 ):
     o, lse = ring_flash_attention(
         q,
@@ -242,7 +237,6 @@ def _ring_diff_fwd(
         sm_scale=sm_scale,
         block_sizes=block_sizes,
         save_lse=True,
-        interpret=interpret,
         dropout_rate=dropout_rate,
         dropout_seed=dropout_seed,
         dropout_heads=dropout_heads,
@@ -251,12 +245,10 @@ def _ring_diff_fwd(
 
 
 def _ring_diff_bwd(
-    axis_name, axis_size, causal, sm_scale, block_sizes, interpret,
+    axis_name, axis_size, causal, sm_scale, block_sizes,
     dropout_rate, dropout_heads, res, do,
 ):
     q, k, v, dropout_seed, o, lse = res
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     n_loc = q.shape[2]
     my = jax.lax.axis_index(axis_name)
     sv = pack_dropout_seed(dropout_seed) if dropout_rate else None
@@ -264,23 +256,8 @@ def _ring_diff_bwd(
     # The local LSE (already merged over the whole ring) reconstructs
     # P = exp(S - L) exactly on every ring step, so per-step partials are
     # true slices of the global gradient (``flash_bwd`` recompute trick,
-    # ``kernels.metal:1081-1089``, lifted across devices).
-    lse_lanes = jnp.broadcast_to(
-        lse[..., None].astype(jnp.float32), (*lse.shape, NUM_LANES)
-    )
-
-    # GQA: the FA-2 backward kernels require equal head counts (they raise
-    # otherwise — out-of-range KV head block indices would silently clamp),
-    # so broadcast each visiting KV shard to the Q head count and
-    # group-reduce its dk/dv partial back, exactly like
-    # ops.attention._flash_bwd_rule.
-    h_q, h_kv = q.shape[1], k.shape[1]
-    if h_q % h_kv:
-        raise ValueError(
-            f"q heads ({h_q}) must be a multiple of kv heads ({h_kv})"
-        )
-    reps = h_q // h_kv
-
+    # ``kernels.metal:1081-1089``, lifted across devices).  The backward
+    # kernels take GQA K/V as they are and return KV-head-sized dK/dV.
     dq_acc = jnp.zeros(q.shape, jnp.float32)
     kb, vb = k, v
     dkb = jnp.zeros(k.shape, jnp.float32)
@@ -288,8 +265,6 @@ def _ring_diff_bwd(
     for step in range(axis_size):
         src = (my - step) % axis_size
         offset = (my - src) * n_loc
-        kb_full = jnp.repeat(kb.astype(q.dtype), reps, axis=1) if reps > 1 else kb.astype(q.dtype)
-        vb_full = jnp.repeat(vb.astype(q.dtype), reps, axis=1) if reps > 1 else vb.astype(q.dtype)
         drop = {}
         if dropout_rate:
             # Same GLOBAL mask coordinates as the forward's ring step that
@@ -308,22 +283,17 @@ def _ring_diff_bwd(
             )
         dq_i, dk_i, dv_i = flash_attention_bwd(
             q,
-            kb_full,
-            vb_full,
+            kb.astype(q.dtype),
+            vb.astype(q.dtype),
             o,
             do.astype(q.dtype),
-            lse_lanes,
+            lse,
             offset,
             sm_scale=sm_scale,
             causal=causal,
             block_sizes=block_sizes,
-            interpret=interpret,
             **drop,
         )
-        if reps > 1:
-            b, _, n_s, d = dk_i.shape
-            dk_i = dk_i.reshape(b, h_kv, reps, n_s, d).sum(axis=2)
-            dv_i = dv_i.reshape(b, h_kv, reps, n_s, d).sum(axis=2)
         dq_acc = dq_acc + dq_i.astype(jnp.float32)
         dkb = dkb + dk_i.astype(jnp.float32)
         dvb = dvb + dv_i.astype(jnp.float32)
@@ -389,7 +359,7 @@ def make_ring_attention(
         if differentiable:
             return ring_flash_attention_diff(
                 q, k, v, seed, axis_name, axis_size, causal, sm_scale,
-                block_sizes, None, rate,
+                block_sizes, rate,
             )
         return ring_flash_attention(
             q,

@@ -47,7 +47,7 @@ def ulysses_attention(
     ``n_kv_heads % axis_size == 0`` — when instead ``axis_size %
     n_kv_heads == 0`` (fewer KV heads than devices), each KV head is
     replicated ``axis_size // n_kv_heads`` times before the split so
-    every device lands exactly one KV head group (extra ICI volume:
+    every device lands exactly one KV head group (extra interconnect volume:
     the replication factor on K/V only); other ratios raise.
     """
     h_q, h_kv = q.shape[1], k.shape[1]

@@ -4,7 +4,7 @@ The continuous-batching engine covers sampling/greedy serving; this
 module adds the classic highest-probability search for quality-first
 decoding (translation-style workloads).  Beams live in the batch
 dimension of the decode state — one fused step per round scores all
-beams at once on the MXU, and beam reordering is a single gather on the
+beams at once, and beam reordering is a single gather on the
 state's slot axis (cheap: [L, B, Hk, N, D] with B = beam_width).
 
 Finished beams (EOS) are frozen with the standard mask trick: their row

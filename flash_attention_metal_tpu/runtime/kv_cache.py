@@ -12,8 +12,24 @@ serves every batch composition (continuous batching stays jit-friendly).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import jax
 import jax.numpy as jnp
+
+from ..kernels.quant import quantize_tokens
+
+# The attention kernel's KV tile (``config.BlockSizes.resolve``): a cache
+# length that is a multiple of it is read in place, anything else would
+# be padded (copied) on every step.
+KV_BLOCK = 64
+
+
+def _check_kv_block(name: str, n: int) -> None:
+    if n % KV_BLOCK:
+        raise ValueError(
+            f"{name}={n} must be a multiple of {KV_BLOCK} (the attention "
+            "kernel's KV block)"
+        )
 
 
 @jax.tree_util.register_pytree_node_class
@@ -49,8 +65,7 @@ def init_cache(
     head_dim: int,
     dtype=jnp.bfloat16,
 ) -> KVCache:
-    if max_len % 128:
-        raise ValueError(f"max_len={max_len} must be a multiple of 128")
+    _check_kv_block("max_len", max_len)
     shape = (n_layers, batch, n_kv_heads, max_len, head_dim)
     return KVCache(
         k=jnp.zeros(shape, dtype),
@@ -113,8 +128,8 @@ class QuantKVCache:
     """8-bit per-slot KV cache with per-token absmax scales.
 
     ``k_q/v_q``: ``[n_layers, B, H_kv, max_len, head_dim]`` int8/fp8;
-    ``k_scale/v_scale``: ``[n_layers, B, H_kv, max_len]`` fp32 (reshaped
-    to the kernel's lane-tiled layout at use); ``lengths``: ``[B]``.
+    ``k_scale/v_scale``: ``[n_layers, B, H_kv, max_len]`` fp32, one per
+    token; ``lengths``: ``[B]``.
     Tokens are quantized once at append time — HBM holds 8-bit KV, halving
     (vs bf16) the decode-dominant cache reads (``kernels/quant.py``).
     """
@@ -155,8 +170,7 @@ def init_quant_cache(
     head_dim: int,
     dtype=jnp.int8,
 ) -> QuantKVCache:
-    if max_len % 128:
-        raise ValueError(f"max_len={max_len} must be a multiple of 128")
+    _check_kv_block("max_len", max_len)
     shape = (n_layers, batch, n_kv_heads, max_len, head_dim)
     sshape = shape[:-1]
     return QuantKVCache(
@@ -180,20 +194,9 @@ def append_tokens_quant(
     Symmetric per-token absmax, matching ``kernels.quant.quantize_kv``.
     Does NOT bump ``lengths`` (the caller bumps once after all layers).
     """
-    from ..kernels.quant import _QMAX
 
     qdtype = cache.k_q.dtype
-    qmax = _QMAX[jnp.dtype(qdtype)]
-
-    def quant(x):
-        amax = jnp.max(jnp.abs(x.astype(jnp.float32)), axis=-1, keepdims=True)
-        scale = jnp.maximum(amax, 1e-12) / qmax
-        xf = x.astype(jnp.float32) / scale
-        if jnp.dtype(qdtype) == jnp.int8.dtype:
-            xq = jnp.clip(jnp.round(xf), -qmax, qmax).astype(qdtype)
-        else:
-            xq = xf.astype(qdtype)
-        return xq, scale[..., 0]  # [B, H, T]
+    quant = functools.partial(quantize_tokens, dtype=qdtype)
 
     kq_new, ks_new = quant(k_new)
     vq_new, vs_new = quant(v_new)
@@ -279,8 +282,7 @@ def init_rolling_cache(
     dtype=jnp.bfloat16,
     sinks: int = 0,
 ) -> RollingKVCache:
-    if capacity % 128:
-        raise ValueError(f"capacity={capacity} must be a multiple of 128")
+    _check_kv_block("capacity", capacity)
     shape = (n_layers, batch, n_kv_heads, capacity, head_dim)
     return RollingKVCache(
         k=jnp.zeros(shape, dtype),
@@ -396,8 +398,7 @@ def init_rolling_quant_cache(
     dtype=jnp.int8,
     sinks: int = 0,
 ) -> RollingQuantKVCache:
-    if capacity % 128:
-        raise ValueError(f"capacity={capacity} must be a multiple of 128")
+    _check_kv_block("capacity", capacity)
     shape = (n_layers, batch, n_kv_heads, capacity, head_dim)
     return RollingQuantKVCache(
         k_q=jnp.zeros(shape, dtype),
@@ -421,7 +422,6 @@ def append_tokens_rolling_quant(
     Same ``T <= capacity - sinks`` / chunking contract as
     ``append_tokens_rolling``.
     """
-    from ..kernels.quant import _QMAX
 
     t_new = k_new.shape[2]
     cap = cache.capacity
@@ -431,17 +431,7 @@ def append_tokens_rolling_quant(
             f"{cap} - {cache.sinks} sinks (chunk the prefill)"
         )
     qdtype = cache.k_q.dtype
-    qmax = _QMAX[jnp.dtype(qdtype)]
-
-    def quant(x):
-        amax = jnp.max(jnp.abs(x.astype(jnp.float32)), axis=-1, keepdims=True)
-        scale = jnp.maximum(amax, 1e-12) / qmax
-        xf = x.astype(jnp.float32) / scale
-        if jnp.dtype(qdtype) == jnp.int8.dtype:
-            xq = jnp.clip(jnp.round(xf), -qmax, qmax).astype(qdtype)
-        else:
-            xq = xf.astype(qdtype)
-        return xq, scale[..., 0]
+    quant = functools.partial(quantize_tokens, dtype=qdtype)
 
     kq_new, ks_new = quant(k_new)
     vq_new, vs_new = quant(v_new)

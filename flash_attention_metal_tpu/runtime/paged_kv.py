@@ -22,10 +22,13 @@ ever see dense int32 arrays.  This mirrors the reference's split of
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List
 
 import jax
 import jax.numpy as jnp
+
+from ..kernels.quant import quantize_tokens
 
 
 @jax.tree_util.register_pytree_node_class
@@ -80,8 +83,11 @@ def init_paged_cache(
     """``n_pages`` physical pages shared by ``batch`` slots of up to
     ``max_len`` logical tokens each (oversubscription is allowed and is
     the feature; the allocator raises when the pool truly runs dry)."""
-    if page_size % 128:
-        raise ValueError(f"page_size={page_size} must be a multiple of 128")
+    if page_size < 16 or page_size & (page_size - 1):
+        raise ValueError(
+            f"page_size={page_size} must be a power of two >= 16 (the "
+            "paged kernel reads one page per KV block)"
+        )
     if max_len % page_size:
         raise ValueError(f"max_len={max_len} must be a multiple of page_size")
     shape = (n_layers, n_pages, n_kv_heads, page_size, head_dim)
@@ -262,7 +268,7 @@ class PagedQuantKVCache:
     Same table/lengths semantics as ``PagedKVCache``; tokens are
     quantized at append (symmetric per-token absmax, matching
     ``kv_cache.append_tokens_quant``) so HBM holds 8-bit pages and the
-    paged-quant kernel dequantizes in VMEM."""
+    paged-quant kernel dequantizes in registers."""
 
     pool_k_q: jax.Array  # [L, P, H_kv, page_size, D] int8/fp8
     pool_v_q: jax.Array
@@ -317,8 +323,11 @@ def init_paged_quant_cache(
     page_size: int = 128,
     dtype=jnp.int8,
 ) -> PagedQuantKVCache:
-    if page_size % 128:
-        raise ValueError(f"page_size={page_size} must be a multiple of 128")
+    if page_size < 16 or page_size & (page_size - 1):
+        raise ValueError(
+            f"page_size={page_size} must be a power of two >= 16 (the "
+            "paged kernel reads one page per KV block)"
+        )
     if max_len % page_size:
         raise ValueError(f"max_len={max_len} must be a multiple of page_size")
     shape = (n_layers, n_pages, n_kv_heads, page_size, head_dim)
@@ -341,20 +350,9 @@ def append_tokens_paged_quant(
 ) -> PagedQuantKVCache:
     """Quantize + scatter ``[B, H_kv, T, D]`` keys/values through the
     page table (same write-head semantics as ``append_tokens_paged``)."""
-    from ..kernels.quant import _QMAX
 
     qdtype = cache.pool_k_q.dtype
-    qmax = _QMAX[jnp.dtype(qdtype)]
-
-    def quant(x):
-        amax = jnp.max(jnp.abs(x.astype(jnp.float32)), axis=-1, keepdims=True)
-        scale = jnp.maximum(amax, 1e-12) / qmax
-        xf = x.astype(jnp.float32) / scale
-        if jnp.dtype(qdtype) == jnp.int8.dtype:
-            xq = jnp.clip(jnp.round(xf), -qmax, qmax).astype(qdtype)
-        else:
-            xq = xf.astype(qdtype)
-        return xq, scale[..., 0]  # [B, H, T]
+    quant = functools.partial(quantize_tokens, dtype=qdtype)
 
     kq_new, ks_new = quant(k_new)
     vq_new, vs_new = quant(v_new)

@@ -38,7 +38,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec
 
 from ..kernels.flash_fwd import flash_attention_fwd
-from ..kernels.quant import QuantizedKV, flash_attention_quant
+from ..kernels.quant import QuantizedKV, flash_attention_quant, quantize_tokens
 from ..models.transformer import (
     ModelConfig,
     Params,
@@ -49,6 +49,7 @@ from ..models.transformer import (
     mlp_block,
     rms_norm,
 )
+from ..ops.attention import note_end
 from ..parallel.context import lse_psum_combine
 from .decode import sample_batch
 from .kv_cache import KVCache, QuantKVCache, bump_lengths
@@ -244,7 +245,6 @@ def _sp_attn_with_cache(
         )
     dt = cfg.dtype
     t_new = x.shape[1]
-    interpret = jax.default_backend() != "tpu"
     my_sp = jax.lax.axis_index(seq_axis) if seq_axis is not None else 0
 
     # Score transforms (softcap / ALiBi) ride the sharded path too
@@ -282,6 +282,11 @@ def _sp_attn_with_cache(
     k = _maybe_rope(k, positions, cfg)
 
     is_quant = isinstance(cache, QuantKVCache)
+    note_end(
+        f"sharded {'decode' if t_new == 1 else 'prefill'}, "
+        f"{'8-bit' if is_quant else 'dense'} cache",
+        "pallas",
+    )
     maxloc = (cache.k_q if is_quant else cache.k).shape[3]
     local_start = cache.lengths - my_sp * maxloc  # [B], may be negative
     owned = (local_start >= 0) & (local_start + t_new <= maxloc)
@@ -316,20 +321,12 @@ def _sp_attn_with_cache(
             k_scale=cache.k_scale.at[layer_idx].set(ks_l),
             v_scale=cache.v_scale.at[layer_idx].set(vs_l),
         )
-        kv_loc = cfg.n_kv_heads // tp_size
-        qkv_q = QuantizedKV(
-            k_q=k_l,
-            v_q=v_l,
-            k_scale=ks_l.reshape(k_l.shape[0], kv_loc, maxloc // 128, 128),
-            v_scale=vs_l.reshape(k_l.shape[0], kv_loc, maxloc // 128, 128),
-        )
-        o_l, lse_lanes = flash_attention_quant(
+        o_l, lse_l = flash_attention_quant(
             q,
-            qkv_q,
+            QuantizedKV(k_q=k_l, v_q=v_l, k_scale=ks_l, v_scale=vs_l),
             offset,
             causal=True,
             save_lse=True,
-            interpret=interpret,
             **_transforms,
         )
     else:
@@ -344,20 +341,18 @@ def _sp_attn_with_cache(
             v=cache.v.at[layer_idx].set(v_l),
             lengths=cache.lengths,
         )
-        o_l, lse_lanes = flash_attention_fwd(
+        o_l, lse_l = flash_attention_fwd(
             q,
             k_l,
             v_l,
             offset,
             causal=True,
-            block_sizes=cfg.block_sizes,
             save_lse=True,
-            interpret=interpret,
             **_transforms,
         )
 
     if seq_axis is not None:
-        o = lse_psum_combine(o_l, lse_lanes[..., 0], seq_axis).astype(dt)
+        o = lse_psum_combine(o_l, lse_l, seq_axis).astype(dt)
     else:
         o = o_l
     out = _merge_heads(o) @ layer["wo"].astype(dt)
@@ -372,7 +367,8 @@ class SpStepFns:
     engine.
 
     ``decode_and_sample(params, cache, tokens, active, key, temps,
-    top_ks, top_ps)`` and
+    top_ks, top_ps)``, ``decode_step(params, cache, tokens, active)``
+    (logits only) and
     ``prefill_chunk(params, cache, tokens, start_len, prompt_len, slot)``
     take/return GLOBAL arrays laid out per ``cache_pspec`` /
     ``param_pspecs``.  ``seq_axis`` shards the KV length dim (lse
@@ -412,14 +408,11 @@ class SpStepFns:
         rep = PartitionSpec()
         dp = PartitionSpec(batch_axis)
 
-        def one_step(params, cache, tok, active, k_i, temps, top_ks,
-                     top_ps, pen_counts, presences, frequencies, min_ps):
-            """One sharded decode+sample step (shard-local view).
+        def logits_step(params, cache, tok, active):
+            """One sharded decode step's logits (shard-local view).
 
-            ``k_i`` must already be dp-folded.  lm_head is replicated
-            (see param_pspecs), so logits — and therefore penalties/
-            sampling/logprobs — are identical on every tp/sp shard of a
-            dp group.
+            lm_head is replicated (see param_pspecs), so the logits are
+            identical on every tp/sp shard of a dp group.
             """
             positions = cache.lengths[:, None]
             x = params["embed"][tok[:, None]].astype(cfg.dtype)
@@ -433,7 +426,13 @@ class SpStepFns:
             logits = (x @ params["lm_head"].astype(cfg.dtype)).astype(
                 jnp.float32
             )[:, 0]
-            cache = bump_lengths(cache, 1, active)
+            return logits, bump_lengths(cache, 1, active)
+
+        def one_step(params, cache, tok, active, k_i, temps, top_ks,
+                     top_ps, pen_counts, presences, frequencies, min_ps):
+            """One sharded decode+sample step (shard-local view); ``k_i``
+            must already be dp-folded."""
+            logits, cache = logits_step(params, cache, tok, active)
             toks = sample_batch.__wrapped__(
                 logits, k_i, temps,
                 top_ks, top_ps, pen_counts, presences, frequencies, min_ps,
@@ -500,6 +499,21 @@ class SpStepFns:
                       min_ps)
 
         self.decode_and_sample = jax.jit(_wrap_decode, donate_argnums=(1,))
+
+        def _wrap_logits(params, cache, tokens, active):
+            spec = jax.tree_util.tree_map(cspec, cache)
+            fn = jax.shard_map(
+                logits_step,
+                mesh=mesh,
+                in_specs=(param_pspecs(params, head_axis), spec, dp, dp),
+                out_specs=(dp, spec),
+                check_vma=False,
+            )
+            return fn(params, cache, tokens, active)
+
+        # ``decode.decode_step``'s sharded twin: one step's logits over
+        # given tokens, for teacher-forced comparison with one device.
+        self.decode_step = jax.jit(_wrap_logits, donate_argnums=(1,))
         self._multi_fns = {}
 
     # ------------------------------------------------------------------

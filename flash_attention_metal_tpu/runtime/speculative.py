@@ -9,7 +9,7 @@ scores all of them in ONE chunked decode (causal flash attention with
 ``runtime/decode.py:1-8``), and a device-side acceptance rule keeps the
 longest prefix consistent with the target distribution.
 
-TPU-native shape discipline:
+Static-shape discipline:
 
 * One jitted program per round (draft loop unrolled over static
   ``gamma``, verify chunk padded to a multiple of 8 rows) — no dynamic

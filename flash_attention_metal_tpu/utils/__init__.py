@@ -1,9 +1,9 @@
-"""Utilities: roofline accounting, timing, plotting."""
+"""Utilities: roofline accounting, timing, checkpoints, data."""
 
 from .roofline import (
     attention_bytes,
     attention_flops,
-    detect_chip,
+    chip_spec,
     roofline_fraction,
     roofline_time,
 )
@@ -12,7 +12,7 @@ from .timing import measure
 __all__ = [
     "attention_bytes",
     "attention_flops",
-    "detect_chip",
+    "chip_spec",
     "roofline_fraction",
     "roofline_time",
     "measure",

@@ -19,7 +19,7 @@ try:
     import orbax.checkpoint as ocp
 
     _HAS_ORBAX = True
-except Exception:  # pragma: no cover
+except ImportError:
     _HAS_ORBAX = False
 
 import pickle
@@ -34,7 +34,7 @@ def save_pytree(path: str, tree: Any) -> None:
         ckptr = ocp.StandardCheckpointer()
         ckptr.save(path, tree, force=True)
         ckptr.wait_until_finished()
-    else:  # pragma: no cover - orbax is baked into this environment
+    else:
         leaves, treedef = jax.tree_util.tree_flatten(tree)
         os.makedirs(path, exist_ok=True)
         with open(os.path.join(path, "fallback.pkl"), "wb") as f:
@@ -61,6 +61,6 @@ def restore_pytree(path: str, like: Optional[Any] = None) -> Any:
             )
             return ckptr.restore(path, abstract)
         return ckptr.restore(path)
-    with open(os.path.join(path, "fallback.pkl"), "rb") as f:  # pragma: no cover
+    with open(os.path.join(path, "fallback.pkl"), "rb") as f:
         leaves, treedef = pickle.load(f)
     return jax.tree_util.tree_unflatten(treedef, leaves)

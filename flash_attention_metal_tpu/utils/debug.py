@@ -1,8 +1,8 @@
 """Numerics sanitizer layer (SURVEY.md §5 race-detection/sanitizer line).
 
 The reference found its races by output mismatch and fixed them with
-atomics (``project_narrative.md:70-73``); on TPU determinism is
-structural (no atomics anywhere), so the sanitizer layer targets the
+atomics (``project_narrative.md:70-73``); here determinism is
+structural (no atomics in any kernel), so the sanitizer layer targets the
 remaining failure class: silent NaN/Inf propagation.  Two tools:
 
 * ``checked(fn)`` — wrap a jittable function with ``checkify`` so float

@@ -2,7 +2,7 @@
 
 The reference profiles with Xcode GPU Frame Capture and Metal System
 Trace (``xcode_setup_guide.md:37-47``) and stubs an in-process capture
-scaffold (``main.mm:34-38``); the TPU-native equivalents are
+scaffold (``main.mm:34-38``); the equivalents here are
 ``jax.profiler`` traces viewable in Perfetto/XProf plus the roofline
 accounting in ``utils/roofline.py``.
 """

@@ -1,12 +1,14 @@
-"""Roofline model for attention kernels on TPU.
+"""Roofline model for attention kernels on the GPU.
 
 The reference only reports *relative* speedup vs its naive kernel
-(``main.mm:862-865``); BASELINE.json's metric additionally demands absolute
-TFLOP/s and %-of-roofline, so this module carries the per-chip peak specs
-and the attention FLOP/byte model.
+(``main.mm:862-865``); a roofline share needs the card's peak rates and
+the attention FLOP/byte model, both kept here.
 
-Peak numbers are the published per-chip specs for each TPU generation
-(bf16 dense MXU FLOP/s and HBM bandwidth).
+Peaks are NVIDIA's published data-sheet numbers (dense, without
+sparsity), keyed by the ``device_kind`` JAX reports.  They assume the
+card's full power limit; ``nvidia-smi --query-gpu=power.limit`` says
+whether it has one.  A device that is not in the table is an error, not
+a default.
 """
 
 from __future__ import annotations
@@ -20,40 +22,35 @@ import jax
 @dataclasses.dataclass(frozen=True)
 class ChipSpec:
     name: str
-    # Dense matmul peak, FLOP/s.
+    # Dense tensor-core peak for bf16/fp16 operands, FLOP/s.
     peak_bf16_flops: float
+    # fp32 peak outside the tensor cores, FLOP/s.
     peak_fp32_flops: float
-    # HBM bandwidth, bytes/s.
+    # Device memory bandwidth, bytes/s, and capacity, bytes.
     hbm_bw: float
-    vmem_bytes: int
+    hbm_bytes: float
 
 
-# Published per-chip peaks.  fp32 peak on TPU is the bf16 MXU peak divided
-# by the multi-pass decomposition factor (~1/8 effective for HIGHEST).
+# NVIDIA H100 data sheet (SXM part): 989 TFLOP/s dense bf16, 67 TFLOP/s
+# fp32, 3.35 TB/s and 80 GB of HBM3.
 CHIP_SPECS = {
-    "v4": ChipSpec("v4", 275e12, 275e12 / 8, 1228e9, 128 * 2**20),
-    "v5e": ChipSpec("v5e", 197e12, 197e12 / 8, 819e9, 128 * 2**20),
-    "v5p": ChipSpec("v5p", 459e12, 459e12 / 8, 2765e9, 128 * 2**20),
-    "v6e": ChipSpec("v6e", 918e12, 918e12 / 8, 1640e9, 128 * 2**20),
+    "NVIDIA H100 80GB HBM3": ChipSpec(
+        "H100 SXM", 989e12, 67e12, 3.35e12, 80e9
+    ),
 }
 
 
-def detect_chip() -> ChipSpec:
-    """Best-effort chip detection from the local JAX device."""
-    if jax.default_backend() != "tpu":
-        # CPU fallback spec so the harness still runs (roofline % will be
-        # meaningless but well-defined).
-        return ChipSpec("cpu", 1e12, 5e11, 100e9, 32 * 2**20)
-    kind = jax.devices()[0].device_kind.lower()
-    if "v5 lite" in kind or "v5e" in kind or "v5lite" in kind:
-        return CHIP_SPECS["v5e"]
-    if "v5p" in kind or "v5" in kind:
-        return CHIP_SPECS["v5p"]
-    if "v6" in kind:
-        return CHIP_SPECS["v6e"]
-    if "v4" in kind:
-        return CHIP_SPECS["v4"]
-    return CHIP_SPECS["v5e"]
+def chip_spec(device_kind: Optional[str] = None) -> ChipSpec:
+    """Peak table entry for ``device_kind`` (default: the first device)."""
+    if device_kind is None:
+        device_kind = jax.devices()[0].device_kind
+    try:
+        return CHIP_SPECS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no peak rates for device kind {device_kind!r}; add its data "
+            f"sheet values to utils/roofline.py CHIP_SPECS"
+        ) from None
 
 
 def attention_flops(
@@ -70,8 +67,7 @@ def attention_flops(
 
     Forward: 2 matmuls (QK^T and PV), 2*N_q*N_kv*D MACs each -> 4*N_q*N_kv*D
     FLOPs per (batch, head).  Causal halves the score area.  Backward does
-    5 block matmuls (S recompute x2, dV, dP x2, dS-derived dQ/dK) ~= 2.5x
-    the forward FLOPs.
+    5 block matmuls (S recompute, dV, dP, dQ, dK) ~= 2.5x the forward FLOPs.
     """
     f = 4.0 * batch * heads * n_q * n_kv * head_dim
     if causal:
@@ -95,44 +91,17 @@ def attention_bytes(
     )
 
 
-def mxu_width_factor(head_dim: int) -> float:
-    """Attention MXU duty factor at a given head dim (REPORTING MODEL).
-
-    The MXU is a 128x128 systolic array and attention's matmuls have one
-    dimension pinned to ``head_dim`` (the QK^T contraction depth and the
-    P.V output width), so the model divides the dense peak by 128/D for
-    D < 128.  Round-5 per-shape measurements
-    (``experiments/mxu_rates.py``, v5e) show this is a *convention*, not
-    a physical ceiling: the penalty is per pinned-dimension KIND —
-    D-narrow-OUTPUT matmuls ([M,K]x[K,64]) measured 39-49% of dense
-    peak, while D-deep-CONTRACTION matmuls ([M,64]x[64,N]) measured
-    76-79%, i.e. above the D/128 line — which is how the transposed-
-    output kernels (``kernels/flash_tri.py`` ``pv_transposed``) can
-    reach and slightly exceed 100% of this model's "speed of light".
-    The D/128 convention is kept for roofline *reporting* so all rounds'
-    numbers stay comparable (BASELINE.json metric); per-shape truth
-    lives in ``experiments/mxu_rates.json``.
-    """
-    return min(head_dim, 128) / 128.0
-
-
 def roofline_time(
     flops: float,
     bytes_moved: float,
     spec: Optional[ChipSpec] = None,
     dtype_bits: int = 16,
-    head_dim: int = 128,
 ) -> float:
-    """Speed-of-light seconds for a kernel under the roofline model.
-
-    Pass ``head_dim`` to account for the MXU width cap (see
-    ``mxu_width_factor``); the default 128 reproduces the plain dense
-    roofline.
-    """
+    """Least seconds the card could take: the larger of compute and
+    memory time."""
     if spec is None:
-        spec = detect_chip()
+        spec = chip_spec()
     peak = spec.peak_bf16_flops if dtype_bits <= 16 else spec.peak_fp32_flops
-    peak = peak * mxu_width_factor(head_dim)
     return max(flops / peak, bytes_moved / spec.hbm_bw)
 
 
@@ -142,8 +111,7 @@ def roofline_fraction(
     bytes_moved: float,
     spec: Optional[ChipSpec] = None,
     dtype_bits: int = 16,
-    head_dim: int = 128,
 ) -> float:
     """Fraction of speed-of-light achieved (1.0 == at the roofline)."""
-    ideal = roofline_time(flops, bytes_moved, spec, dtype_bits, head_dim)
+    ideal = roofline_time(flops, bytes_moved, spec, dtype_bits)
     return ideal / measured_s if measured_s > 0 else 0.0

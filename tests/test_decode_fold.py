@@ -2,8 +2,8 @@
 
 The fold packs each KV head's ``group`` query heads into adjacent rows
 (kernel ``pos_div``), reading the KV cache once per KV head instead of
-once per q-head — measured 7.7x at group=8, N=32K on the v5e.  These
-tests pin exactness vs the unfolded kernel across mask variants.
+once per q-head.  These tests pin exactness vs the unfolded kernel
+across mask variants.
 """
 
 import jax
@@ -78,11 +78,11 @@ def test_fold_quant_matches_unfolded(t, kw):
     q, k, v, lengths = _fixtures(hq, hkv, t, n=512)
     qkv = quantize_kv(k, v, dtype=jnp.int8)
     ref = flash_attention_quant(
-        q, qkv, lengths, causal=True, interpret=True, **kw
+        q, qkv, lengths, causal=True, **kw
     )
     got = flash_attention_quant(
         fold_gqa_rows(q, hkv), qkv, lengths, causal=True,
-        pos_div=group, interpret=True, **kw,
+        pos_div=group, **kw,
     )
     got = unfold_gqa_rows(got, hq, t)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-5)
@@ -122,11 +122,11 @@ def test_fold_paged_matches_unfolded(t, kw):
     q, k, v, lengths = _fixtures(hq, hkv, t, n=512)
     pool_k, pool_v, table = _contiguous_pool(k, v)
     ref = flash_attention_paged(
-        q, pool_k, pool_v, table, lengths, interpret=True, **kw
+        q, pool_k, pool_v, table, lengths, **kw
     )
     got = flash_attention_paged(
         fold_gqa_rows(q, hkv), pool_k, pool_v, table, lengths,
-        pos_div=group, interpret=True, **kw,
+        pos_div=group, **kw,
     )
     got = unfold_gqa_rows(got, hq, t)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-5)
@@ -159,11 +159,10 @@ def test_fold_paged_quant_matches_unfolded():
     )
     ref = flash_attention_paged_quant(
         q, pool_kq, pool_vq, pool_ks, pool_vs, table, lengths,
-        interpret=True,
     )
     got = flash_attention_paged_quant(
         fold_gqa_rows(q, hkv), pool_kq, pool_vq, pool_ks, pool_vs, table,
-        lengths, pos_div=group, interpret=True,
+        lengths, pos_div=group,
     )
     got = unfold_gqa_rows(got, hq, t)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=2e-5)

@@ -21,10 +21,7 @@ from flash_attention_metal_tpu.reference import (
 RATE = 0.2
 SEED = jnp.int32(1234)
 # Multi-block tiles so the streaming (online-softmax) path is exercised.
-BS = BlockSizes(
-    block_q=128, block_k_major=128, block_k=128,
-    block_q_dkv=128, block_kv_dkv=128, block_q_dq=128, block_kv_dq=128,
-)
+BS = BlockSizes(block_q=64, block_k=64, block_q_bwd=64, block_k_bwd=64)
 
 
 @pytest.mark.parametrize("causal", [False, True])

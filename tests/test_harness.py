@@ -1,16 +1,11 @@
-"""Harness tests: ladder at small N, CSV/SVG artifacts."""
+"""Harness tests: kernel checks at small sizes, the roofline table, the
+route decision, the compile cache, and lowering for the GPU."""
 
-import math
-import os
-
+import jax
+import jax.numpy as jnp
 import pytest
 
-from flash_attention_metal_tpu.harness import run_ladder
-from flash_attention_metal_tpu.harness.plotting import (
-    generate_svg,
-    parse_csv,
-    plot_benchmark_csv,
-)
+from flash_attention_metal_tpu.harness import CHECKS, SMALL
 from flash_attention_metal_tpu.utils import (
     attention_flops,
     roofline_fraction,
@@ -18,25 +13,39 @@ from flash_attention_metal_tpu.utils import (
 )
 
 
-def test_ladder_all_pass():
-    results = run_ladder(n=128, heads=1)
-    assert len(results) == 35
+@pytest.mark.parametrize("check", sorted(CHECKS))
+def test_ladder_all_pass(check):
+    """Every kernel check of ``harness/verify.py`` passes at small sizes
+    in interpret mode (the same checks run at full width on the card)."""
+    results = CHECKS[check](SMALL)
+    assert results
     for r in results:
         assert r.passed, r.line()
 
 
 def test_roofline_model():
-    # 1 TFLOP at bf16 on v5e-class peak (197e12) -> ~5.08 ms compute-bound.
+    # 1 TFLOP-class attention at bf16 on the H100 SXM peak (989e12).
     from flash_attention_metal_tpu.utils.roofline import CHIP_SPECS
 
-    spec = CHIP_SPECS["v5e"]
+    spec = CHIP_SPECS["NVIDIA H100 80GB HBM3"]
     f = attention_flops(1, 8, 4096, 4096, 64)
     t = roofline_time(f, 1e6, spec)
-    assert t == pytest.approx(f / 197e12)
+    assert t == pytest.approx(f / 989e12)
     # Fraction at exactly the roofline time is 1.0.
     assert roofline_fraction(t, f, 1e6, spec) == pytest.approx(1.0)
     # Tiny kernel is bandwidth-bound.
-    assert roofline_time(1.0, 1e9, spec) == pytest.approx(1e9 / 819e9)
+    assert roofline_time(1.0, 1e9, spec) == pytest.approx(1e9 / 3.35e12)
+
+
+@pytest.mark.parametrize(
+    "kind", ["cpu", "NVIDIA H100 PCIe", "NVIDIA A100-SXM4-80GB"]
+)
+def test_roofline_unknown_device_raises(kind):
+    """A device without data-sheet peaks is an error, never a default."""
+    from flash_attention_metal_tpu.utils.roofline import chip_spec
+
+    with pytest.raises(KeyError, match="no peak rates"):
+        chip_spec(kind)
 
 
 def test_flops_model_causal_and_bwd():
@@ -44,32 +53,6 @@ def test_flops_model_causal_and_bwd():
     assert f == 4 * 2 * 4 * 1024 * 1024 * 64
     assert attention_flops(2, 4, 1024, 1024, 64, causal=True) == f / 2
     assert attention_flops(2, 4, 1024, 1024, 64, backward=True) == f * 2.5
-
-
-def test_csv_svg_roundtrip(tmp_path):
-    csv = tmp_path / "bench.csv"
-    csv.write_text(
-        "N,Naive(ms),FlashV1(ms),FlashV2(ms),FlashMXU(ms),FlashMXU-causal(ms),"
-        "SpeedupV1,SpeedupV2,SpeedupMXU,TFLOPs_MXU,TFLOPs_MXU_causal,"
-        "Roofline_MXU,Roofline_MXU_causal\n"
-        "128,1.0,0.5,0.25,0.2,0.15,2.0,4.0,5.0,10.0,8.0,0.5,0.4\n"
-        "256,4.0,1.0,0.5,0.4,0.3,4.0,8.0,10.0,20.0,16.0,0.6,0.5\n"
-    )
-    header, rows = parse_csv(str(csv))
-    assert header[0] == "N" and len(rows) == 2
-    out1 = tmp_path / "speedup.svg"
-    out2 = tmp_path / "roofline.svg"
-    plot_benchmark_csv(str(csv), str(out1), str(out2))
-    svg = out1.read_text()
-    assert svg.startswith("<svg") and "polyline" in svg and "FlashMXU" in svg
-    assert out2.read_text().count("polyline") >= 2
-
-
-def test_svg_handles_nan():
-    svg = generate_svg(
-        [128, 256], {"a": [1.0, math.nan]}, title="t", y_label="y"
-    )
-    assert "NaN" not in svg.split("polyline")[1].split("/>")[0]
 
 
 def test_train_bench_flops_model():
@@ -95,125 +78,248 @@ def test_train_bench_flops_model():
     assert f < 12 * params + 7 * 2 * 4 * 64 * 512
 
 
-def test_autotune_fwd_smoke(tmp_path, monkeypatch):
-    """Autotuner picks a valid BlockSizes and caches the decision."""
-    import flash_attention_metal_tpu.harness.autotune as at
-
-    # One candidate is enough to exercise measure->pick->persist on the
-    # slow interpreter backend.
-    monkeypatch.setattr(at, "_FWD_TILES", (256,))
-    cache = str(tmp_path / "cache.json")
-    logs = []
-    bs = at.autotune_fwd((1, 1, 256, 64), cache_path=cache, log=logs.append)
-    assert bs.block_q == 256 and bs.block_k_major == 256
-    assert logs  # measured something
-    # Second call hits the cache (no new measurements).
-    logs2 = []
-    bs2 = at.autotune_fwd((1, 1, 256, 64), cache_path=cache, log=logs2.append)
-    assert bs2 == bs and not logs2
-
-
-def test_autotune_lookup(tmp_path, monkeypatch):
-    import flash_attention_metal_tpu.harness.autotune as at
-
-    monkeypatch.setattr(at, "_FWD_TILES", (256,))
-    cache = str(tmp_path / "cache.json")
-    bs = at.autotune_fwd((1, 1, 256, 64), cache_path=cache)
-    monkeypatch.setattr(at, "_MEMO", None)
-    got = at.lookup("fwd", 1, 1, 256, 256, 64, True, "bfloat16",
-                    cache_path=cache)
-    assert got == bs
-    assert at.lookup("fwd", 9, 9, 999, 999, 64, True, "bfloat16") is None
-
-
-def test_autotune_audit(tmp_path):
-    """The coverage guard lists every unraced benchmark shape and goes
-    quiet once the cache covers them (round-4 N=512 hole regression)."""
-    import json
-
-    import flash_attention_metal_tpu.harness.autotune as at
-    from flash_attention_metal_tpu.harness.benchmark import (
-        DEFAULT_SWEEP,
-        amortizing_batch,
+def test_interpret_needs_the_switch(monkeypatch):
+    """Off the GPU the kernels interpret only on request; without the
+    switch the route decision raises and names it."""
+    from flash_attention_metal_tpu.kernels._common import (
+        INTERPRET_ENV,
+        pallas_interpret,
     )
 
-    cache = str(tmp_path / "cache.json")
-    missing = at.audit(cache_path=cache, log=lambda s: None)
-    # 2 mask modes x sweep + train fwd + train bwd.
-    assert len(missing) == 2 * len(DEFAULT_SWEEP) + 2
-    # Populate every audited key; audit must come back clean.
-    entries = {
-        k: {"blocks": {"block_q": 256, "block_k_major": 256, "block_k": 256}}
-        for k in missing
-    }
-    with open(cache, "w") as f:
-        json.dump(entries, f)
-    assert at.audit(cache_path=cache, log=lambda s: None) == []
-    # Every sweep shape is keyed by its amortizing batch, so the audit
-    # tracks the benchmark's actual dispatch policy.
-    b512 = amortizing_batch(512)
-    assert any(f"b{b512}h1q512" in k for k in missing)
+    monkeypatch.setenv(INTERPRET_ENV, "1")
+    assert pallas_interpret() is True
+    monkeypatch.delenv(INTERPRET_ENV)
+    with pytest.raises(RuntimeError, match=INTERPRET_ENV):
+        pallas_interpret()
 
 
-def test_tri_heuristic_eligibility():
-    from flash_attention_metal_tpu.kernels.flash_tri import tri_heuristic
+def test_interpret_switch_reaches_the_op(monkeypatch):
+    """``impl="auto"`` on the CPU raises without the switch; the plain
+    XLA path needs none."""
+    from flash_attention_metal_tpu.kernels._common import INTERPRET_ENV
+    from flash_attention_metal_tpu.ops import flash_attention
 
-    # Standard shapes route tri with the measured-winner transposed-PV
-    # 512 tiles (experiments/tri_pvt.py).
-    assert tri_heuristic(16, 8, 2048, 2048, 64) == (512, 512, True)
-    assert tri_heuristic(1, 1, 4096, 4096, 64) == (512, 512, True)
-    # Shapes too small for 512 q tiles fall back to untransposed 256s.
-    assert tri_heuristic(32, 1, 256, 256, 64) == (256, 256, False)
-    # Declines past the measured N=4096 Mosaic compile wall (the grid
-    # kernel holds 0.71-0.82 of roofline there).
-    assert tri_heuristic(1, 1, 8192, 8192, 64) is None
-    assert tri_heuristic(1, 1, 16384, 16384, 64) is None
-    # Untileable q lengths decline.
-    assert tri_heuristic(1, 1, 100, 100, 64) is None
-    # Cross-shape: block_k clamps to n_kv.
-    assert tri_heuristic(2, 2, 256, 64, 64) == (256, 64, False)
+    jax.clear_caches()
+    q = jnp.ones((1, 1, 16, 16), jnp.float32)
+    monkeypatch.delenv(INTERPRET_ENV)
+    with pytest.raises(RuntimeError, match=INTERPRET_ENV):
+        flash_attention(q, q, q, causal=True)
+    assert flash_attention(q, q, q, causal=True, impl="xla").shape == q.shape
+    jax.clear_caches()
 
 
-def test_causal_default_routes_tri(monkeypatch):
-    """A causal shape with NO autotune entry routes the triangular
-    kernel by default (round 5: the tri win is the default, not a cache
-    hit — ref kernels.metal:682's skip is unconditional)."""
-    import jax
-    import jax.numpy as jnp
+@pytest.mark.parametrize(
+    "features",
+    [
+        dict(dtype=jnp.bfloat16, head_dim=128, n_q=4096, n_kv=4096),
+        dict(dtype=jnp.bfloat16, head_dim=128, q_offset=0),
+        dict(dtype=jnp.float32, head_dim=64, softcap=30.0),
+    ],
+)
+def test_select_impl_off_gpu_is_pallas(features):
+    from flash_attention_metal_tpu.ops.attention import select_impl
 
-    import flash_attention_metal_tpu.harness.autotune as at
-    import flash_attention_metal_tpu.kernels.flash_tri as tri_mod
-    from flash_attention_metal_tpu.kernels import flash_attention_fwd
-    from flash_attention_metal_tpu.reference import make_qkv
+    assert select_impl(**features) == "pallas"
 
-    monkeypatch.setattr(at, "_MEMO", {})  # empty cache: miss everything
-    calls = []
-    real = tri_mod.flash_attention_tri
 
-    def spy(*a, **kw):
-        calls.append((kw.get("block_q"), kw.get("block_k")))
-        return real(*a, **kw)
+@pytest.mark.parametrize(
+    "features,end",
+    [
+        (dict(dtype=jnp.bfloat16, head_dim=128, n_q=4096, n_kv=4096),
+         "cudnn"),
+        (dict(dtype=jnp.bfloat16, head_dim=128, n_q=1, n_kv=4096,
+              q_offset=4095), "pallas"),
+    ],
+)
+def test_select_impl_on_gpu_follows_cudnn_cover(monkeypatch, features, end):
+    """On the GPU ``auto`` takes cuDNN exactly where ``cudnn_covers``."""
+    from flash_attention_metal_tpu.ops import attention
 
-    monkeypatch.setattr(tri_mod, "flash_attention_tri", spy)
-    q, k, v = make_qkv(jax.random.PRNGKey(0), (2, 2, 256, 64))
-    out = flash_attention_fwd(q, k, v, causal=True, interpret=True)
-    assert calls == [(256, 256)]
-    from flash_attention_metal_tpu.reference import attention_reference
+    monkeypatch.setattr(attention.jax, "default_backend", lambda: "gpu")
+    assert attention.select_impl(**features) == end
 
-    ref = attention_reference(q, k, v, causal=True)
-    assert float(jnp.max(jnp.abs(out - ref))) < 1e-3
-    # Extras (window) fall back to the grid kernel — no tri call.
-    calls.clear()
-    flash_attention_fwd(q, k, v, causal=True, window=64, interpret=True)
-    assert calls == []
-    # A cached grid decision for the exact shape overrides the heuristic.
-    calls.clear()
-    key = at._key("fwd", 2, 2, 256, 256, 64, True, q.dtype)
+
+@pytest.mark.parametrize(
+    "impl,kw,kind,end",
+    [
+        ("xla", dict(causal=True), "causal", "xla"),
+        ("auto", dict(causal=False), "non-causal", "pallas"),
+        ("xla", dict(causal=True, q_offset=4), "causal, q_offset", "xla"),
+    ],
+)
+def test_traced_ends_record_the_end_taken(impl, kw, kind, end):
+    """The op records the end it resolved to, by call kind."""
+    from flash_attention_metal_tpu.ops import flash_attention
+    from flash_attention_metal_tpu.ops.attention import traced_ends
+
+    traced_ends(clear=True)
+    q = jax.random.normal(jax.random.PRNGKey(0), (1, 2, 16, 16))
+    flash_attention(q, q, q, impl=impl, **kw)
+    assert traced_ends(clear=True) == {(kind, end): 1}
+
+
+@pytest.mark.parametrize(
+    "features,covered",
+    [
+        (dict(dtype=jnp.bfloat16, head_dim=128, n_q=4096, n_kv=4096), True),
+        (dict(dtype=jnp.float16, head_dim=64, n_q=512, n_kv=512), True),
+        (dict(dtype=jnp.float32, head_dim=128, n_q=512, n_kv=512), False),
+        (dict(dtype=jnp.bfloat16, head_dim=256, n_q=512, n_kv=512), False),
+        (dict(dtype=jnp.bfloat16, head_dim=128, n_q=1, n_kv=512), False),
+        (dict(dtype=jnp.bfloat16, head_dim=128, softcap=30.0), False),
+        (dict(dtype=jnp.bfloat16, head_dim=128, save_lse=True), False),
+        (dict(dtype=jnp.bfloat16, head_dim=128, window=128), False),
+        (dict(dtype=jnp.bfloat16, head_dim=128, dropout_rate=0.1), False),
+        (dict(dtype=jnp.bfloat16, head_dim=128, q_offset=3), False),
+    ],
+)
+def test_cudnn_covers(features, covered):
+    """cuDNN is chosen only for the feature set that was measured."""
+    from flash_attention_metal_tpu.ops.attention import cudnn_covers
+
+    features.setdefault("n_q", 128)
+    features.setdefault("n_kv", 128)
+    assert cudnn_covers(**features) is covered
+
+
+def test_compilation_cache_honours_env(monkeypatch, tmp_path):
+    """With ``JAX_COMPILATION_CACHE_DIR`` set, the program sets no cache
+    directory of its own; without it, the fixed in-checkout one."""
+    from flash_attention_metal_tpu.utils import comp_cache
+
+    updates = []
     monkeypatch.setattr(
-        at,
-        "_MEMO",
-        {key: {"blocks": {"block_q": 256, "block_k_major": 256,
-                          "block_k": 256}}},
+        comp_cache.jax.config, "update", lambda k, v: updates.append((k, v))
     )
-    flash_attention_fwd(q, k, v, causal=True, interpret=True)
-    assert calls == []
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert comp_cache.enable_compilation_cache() == str(tmp_path)
+    assert updates == []
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+    assert comp_cache.enable_compilation_cache() == comp_cache.DEFAULT_DIR
+    assert ("jax_compilation_cache_dir", comp_cache.DEFAULT_DIR) in updates
+    assert comp_cache.DEFAULT_DIR.endswith(".jax_cache")
+
+
+def _lower_for_gpu(monkeypatch, fn, *args):
+    """Lower ``fn`` for CUDA on this CPU host: the Triton lowering of
+    every kernel runs (block shapes, dot shapes, supported primitives);
+    compiling Triton IR to PTX happens only on the card."""
+    import flash_attention_metal_tpu.kernels.flash_bwd as bwd
+    import flash_attention_metal_tpu.kernels.flash_fwd as fwd
+
+    monkeypatch.setattr(fwd, "pallas_interpret", lambda: False)
+    monkeypatch.setattr(bwd, "pallas_interpret", lambda: False)
+    jax.clear_caches()
+    try:
+        exported = jax.export.export(
+            jax.jit(fn),
+            platforms=["cuda"],
+            disabled_checks=[
+                jax.export.DisabledSafetyCheck.custom_call(
+                    "__gpu$xla.gpu.triton"
+                )
+            ],
+        )(*args)
+    finally:
+        jax.clear_caches()
+    text = exported.mlir_module()
+    assert "__gpu$xla.gpu.triton" in text
+    return text
+
+
+def _spec(*shape, dtype=jnp.bfloat16):
+    return jax.ShapeDtypeStruct(shape, dtype)
+
+
+@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float16, jnp.float32])
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(causal=True),
+        dict(causal=False),
+        dict(causal=True, window=64, sinks=4, softcap=20.0),
+    ],
+    ids=["causal", "full", "window-sinks-softcap"],
+)
+def test_train_kernels_lower_for_gpu(monkeypatch, dtype, kw):
+    """Forward + both backward kernels lower through Triton at Llama
+    head dim 128 with GQA 4."""
+    from flash_attention_metal_tpu.ops import flash_attention
+
+    def grads(q, k):
+        def loss(q, k):
+            o = flash_attention(q, k, k, impl="pallas", **kw)
+            return o.astype(jnp.float32).sum()
+
+        return jax.grad(loss, (0, 1))(q, k)
+
+    text = _lower_for_gpu(
+        monkeypatch, grads, _spec(1, 8, 256, 128, dtype=dtype),
+        _spec(1, 2, 256, 128, dtype=dtype),
+    )
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        assert name in text
+
+
+def test_feature_kernels_lower_for_gpu(monkeypatch):
+    from flash_attention_metal_tpu.config import SegmentIds
+    from flash_attention_metal_tpu.ops import flash_attention
+
+    def grads(q, seg, slopes):
+        def loss(q, slopes):
+            o, lse = flash_attention(
+                q, q, q, segment_ids=SegmentIds(seg, seg), causal=True,
+                alibi_slopes=slopes, dropout_rate=0.1,
+                dropout_seed=jnp.int32(3), save_lse=True, impl="pallas",
+            )
+            return o.astype(jnp.float32).sum() + lse.sum()
+
+        return jax.grad(loss, (0, 1))(q, slopes)
+
+    _lower_for_gpu(monkeypatch, grads, _spec(2, 4, 256, 64),
+                   _spec(2, 256, dtype=jnp.int32),
+                   _spec(4, dtype=jnp.float32))
+
+
+@pytest.mark.parametrize(
+    "cache", ["dense", "int8", "fp8", "paged", "paged-int8", "rolling"]
+)
+def test_decode_kernels_lower_for_gpu(monkeypatch, cache):
+    """Decode against every cache kind lowers through Triton (T=1, GQA
+    fold 4, head dim 128)."""
+    from flash_attention_metal_tpu.kernels import (
+        flash_attention_paged,
+        flash_attention_paged_quant,
+        flash_attention_quant,
+        quantize_kv,
+    )
+    from flash_attention_metal_tpu.ops import flash_attention
+    from flash_attention_metal_tpu.ops.attention import gqa_decode_attention
+
+    q = _spec(4, 8, 4, 128)  # folded [B, H_kv, T * group, D]
+    kv = _spec(4, 8, 1024, 128)
+    lens = _spec(4, dtype=jnp.int32)
+    pool = _spec(64, 8, 64, 128)
+    table = _spec(4, 16, dtype=jnp.int32)
+    if cache == "dense":
+        fn, args = gqa_decode_attention, (_spec(4, 32, 1, 128), kv, kv, lens)
+    elif cache in ("int8", "fp8"):
+        dt = jnp.int8 if cache == "int8" else jnp.float8_e4m3fn
+        fn = lambda q, k, l: flash_attention_quant(  # noqa: E731
+            q, quantize_kv(k, k, dt), l, causal=True, pos_div=4)
+        args = (q, kv, lens)
+    elif cache == "paged":
+        fn = lambda q, p, t, l: flash_attention_paged(  # noqa: E731
+            q, p, p, t, l, pos_div=4)
+        args = (q, pool, table, lens)
+    elif cache == "paged-int8":
+        fn = lambda q, p, s, t, l: flash_attention_paged_quant(  # noqa: E731
+            q, p, p, s, s, t, l, pos_div=4)
+        args = (q, _spec(64, 8, 64, 128, dtype=jnp.int8),
+                _spec(64, 8, 64, dtype=jnp.float32), table, lens)
+    else:
+        fn = lambda q, k, p, l: flash_attention(  # noqa: E731
+            q, k, k, l, kv_positions=p, causal=True, window=500, sinks=4)
+        args = (_spec(4, 32, 1, 128), kv, _spec(4, 1024, dtype=jnp.int32),
+                lens)
+    _lower_for_gpu(monkeypatch, fn, *args)

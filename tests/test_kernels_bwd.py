@@ -1,10 +1,10 @@
 """Backward kernels vs the closed-form oracle gradient.
 
 The reference verifies dQ against a CPU gradient at 1e-1 (main.mm:1191;
-loose because of its float-atomic accumulation).  The TPU FA-2
-decomposition accumulates deterministically in fp32, so we hold the fp32
-path to a much tighter 1e-3 and keep the reference's 1e-1 only for the
-half-precision path.
+loose because of its float-atomic accumulation).  The FA-2 dK/dV and dQ
+kernels accumulate deterministically in fp32 with no atomics, so we hold
+the fp32 path to a much tighter 1e-3 and keep the reference's 1e-1 only
+for the half-precision path.
 """
 
 import jax
@@ -24,8 +24,6 @@ from flash_attention_metal_tpu.reference import (
     make_qkv,
 )
 
-INTERPRET = jax.default_backend() != "tpu"
-
 
 def max_abs_diff(a, b):
     return float(jnp.max(jnp.abs(a.astype(jnp.float32) - b.astype(jnp.float32))))
@@ -36,11 +34,11 @@ def max_abs_diff(a, b):
 def test_bwd_fp32_vs_oracle(rng_key, n, causal):
     q, k, v = make_qkv(rng_key, (1, 2, n, 64))
     do = jax.random.normal(jax.random.PRNGKey(3), q.shape, jnp.float32) * 0.1
-    o, lse_lanes = flash_attention_fwd(
-        q, k, v, causal=causal, save_lse=True, interpret=INTERPRET
+    o, lse = flash_attention_fwd(
+        q, k, v, causal=causal, save_lse=True
     )
     dq, dk, dv = flash_attention_bwd(
-        q, k, v, o, do, lse_lanes, causal=causal, interpret=INTERPRET
+        q, k, v, o, do, lse, causal=causal
     )
     dq_r, dk_r, dv_r = attention_reference_bwd(q, k, v, do, causal=causal)
     assert max_abs_diff(dq, dq_r) < 1e-3
@@ -56,11 +54,11 @@ def test_bwd_half_vs_oracle(rng_key, causal):
     do = (
         jax.random.normal(jax.random.PRNGKey(3), q.shape, jnp.float32) * 0.01
     ).astype(jnp.bfloat16)
-    o, lse_lanes = flash_attention_fwd(
-        q, k, v, causal=causal, save_lse=True, interpret=INTERPRET
+    o, lse = flash_attention_fwd(
+        q, k, v, causal=causal, save_lse=True
     )
     dq, dk, dv = flash_attention_bwd(
-        q, k, v, o, do, lse_lanes, causal=causal, interpret=INTERPRET
+        q, k, v, o, do, lse, causal=causal
     )
     dq_r, dk_r, dv_r = attention_reference_bwd(q, k, v, do, causal=causal)
     assert max_abs_diff(dq, dq_r) < 1e-1  # reference backward tolerance
@@ -88,18 +86,15 @@ def test_custom_vjp_grad(rng_key, causal):
 def test_bwd_block_sweep(rng_key):
     q, k, v = make_qkv(rng_key, (1, 1, 512, 64))
     do = jax.random.normal(jax.random.PRNGKey(5), q.shape, jnp.float32) * 0.1
-    o, lse_lanes = flash_attention_fwd(q, k, v, save_lse=True, interpret=INTERPRET)
+    o, lse = flash_attention_fwd(q, k, v, save_lse=True)
     dq_r, dk_r, dv_r = attention_reference_bwd(q, k, v, do)
     for bs in [
-        BlockSizes(
-            block_q_dkv=128, block_kv_dkv=128, block_q_dq=128, block_kv_dq=128
-        ),
-        BlockSizes(
-            block_q_dkv=256, block_kv_dkv=512, block_q_dq=512, block_kv_dq=256
-        ),
+        BlockSizes(block_q_bwd=16, block_k_bwd=32),
+        BlockSizes(block_q_bwd=64, block_k_bwd=128),
+        BlockSizes(block_q_bwd=128, block_k_bwd=64),
     ]:
         dq, dk, dv = flash_attention_bwd(
-            q, k, v, o, do, lse_lanes, block_sizes=bs, interpret=INTERPRET
+            q, k, v, o, do, lse, block_sizes=bs
         )
         assert max_abs_diff(dq, dq_r) < 1e-3
         assert max_abs_diff(dk, dk_r) < 1e-3
@@ -127,13 +122,12 @@ def test_sliding_window_grads(rng_key):
 
     n, w = 512, 160
     q, k, v = make_qkv(rng_key, (1, 2, n, 64))
-    bs = BlockSizes(block_q=128, block_k_major=128, block_k=128)
+    bs = BlockSizes(block_q=64, block_k=64)
 
     def loss(q_, k_, v_):
         return jnp.sum(
             flash_attention(
                 q_, k_, v_, causal=True, window=w, block_sizes=bs,
-                interpret=INTERPRET,
             )
             ** 2
         )
@@ -161,13 +155,13 @@ def test_segment_ids_grads(rng_key):
         [jnp.zeros(192), jnp.ones(192), jnp.full(128, 2)]
     ).astype(jnp.int32)[None]
     sids = SegmentIds(q=seg, kv=seg)
-    bs = BlockSizes(block_q=128, block_k_major=128, block_k=128)
+    bs = BlockSizes(block_q=64, block_k=64)
 
     def loss(q_, k_, v_):
         return jnp.sum(
             flash_attention(
                 q_, k_, v_, segment_ids=sids, causal=True,
-                block_sizes=bs, interpret=INTERPRET,
+                block_sizes=bs,
             )
             ** 2
         )
@@ -187,11 +181,8 @@ def test_segment_ids_grads(rng_key):
 
 
 def test_save_lse_grads_match_oracle(rng_key):
-    """(o, lse) are BOTH differentiable; lse cotangent folds into delta.
-
-    Regression for round-1 VERDICT item 5: save_lse=True used to bypass
-    the custom VJP entirely.
-    """
+    """(o, lse) are BOTH differentiable; lse cotangent folds into delta
+    (save_lse=True must go through the custom VJP, not around it)."""
     from flash_attention_metal_tpu.reference.oracle import (
         attention_reference_with_lse,
     )
@@ -202,7 +193,7 @@ def test_save_lse_grads_match_oracle(rng_key):
 
     def loss_flash(q_, k_, v_):
         o, lse = flash_attention(
-            q_, k_, v_, causal=True, save_lse=True, interpret=INTERPRET
+            q_, k_, v_, causal=True, save_lse=True
         )
         return jnp.sum(o * co) + jnp.sum(lse * cl)
 
@@ -217,16 +208,16 @@ def test_save_lse_grads_match_oracle(rng_key):
 
 
 def test_bwd_neg_inf_lse_rows_give_zero_grads(rng_key):
-    """-inf lse rows (fully-masked / lazy-softmax flush sentinel) must
-    produce p == 0 in the backward, not inf (round-1 ADVICE medium)."""
+    """-inf lse rows (the fully-masked sentinel) must produce p == 0 in
+    the backward, not inf or NaN."""
     q, k, v = make_qkv(rng_key, (1, 1, 512, 64))
     o, lse = flash_attention_fwd(
-        q, k, v, causal=True, save_lse=True, interpret=INTERPRET
+        q, k, v, causal=True, save_lse=True
     )
-    lse = lse.at[0, 0, 7, :].set(-jnp.inf)
+    lse = lse.at[0, 0, 7].set(-jnp.inf)
     do = q * 0.1
     dq, dk, dv = flash_attention_bwd(
-        q, k, v, o, do, lse, causal=True, interpret=INTERPRET
+        q, k, v, o, do, lse, causal=True
     )
     for g in (dq, dk, dv):
         assert bool(jnp.all(jnp.isfinite(g)))
@@ -234,72 +225,20 @@ def test_bwd_neg_inf_lse_rows_give_zero_grads(rng_key):
 
 
 def test_bwd_rejects_head_mismatch(rng_key):
-    """GQA inputs must be broadcast before the backward kernels; silently
-    clamped KV head indices used to corrupt gradients (ADVICE high)."""
-    q, _, _ = make_qkv(rng_key, (1, 4, 128, 64))
+    """KV heads must divide the query heads: a silently clamped KV head
+    index would corrupt the gradients."""
+    q, _, _ = make_qkv(rng_key, (1, 3, 128, 64))
     _, k, v = make_qkv(jax.random.PRNGKey(9), (1, 2, 128, 64))
-    o, lse = flash_attention_fwd(
-        q, k, v, causal=True, save_lse=True, interpret=INTERPRET
-    )
-    with pytest.raises(ValueError, match="equal head counts"):
-        flash_attention_bwd(
-            q, k, v, o, q * 0.1, lse, causal=True, interpret=INTERPRET
-        )
-
-
-@pytest.mark.parametrize("causal", [False, True])
-def test_fused_bwd_matches_oracle(rng_key, causal):
-    """5-matmul fused backward (dQ partials in HBM) == closed-form
-    gradients, both in the single-partial (bkv == n) and multi-partial
-    (bkv < n, summed outside the kernel) regimes."""
-    from flash_attention_metal_tpu.kernels import flash_attention_bwd_fused
-
-    q, k, v = make_qkv(rng_key, (1, 2, 512, 64))
-    do = jax.random.normal(jax.random.PRNGKey(3), q.shape, jnp.float32) * 0.1
-    o, lse = flash_attention_fwd(
-        q, k, v, causal=causal, save_lse=True, interpret=INTERPRET
-    )
-    dq_r, dk_r, dv_r = attention_reference_bwd(q, k, v, do, causal=causal)
-    for bkv in (512, 256):
-        bs = BlockSizes(block_q_fused=256, block_kv_fused=bkv)
-        dq, dk, dv = flash_attention_bwd_fused(
-            q, k, v, o, do, lse, causal=causal, block_sizes=bs,
-            interpret=INTERPRET,
-        )
-        assert max_abs_diff(dq, dq_r) < 1e-3, bkv
-        assert max_abs_diff(dk, dk_r) < 1e-3, bkv
-        assert max_abs_diff(dv, dv_r) < 1e-3, bkv
-
-
-def test_fused_bwd_window_matches_two_kernel(rng_key):
-    """Windowed causal: fused and two-kernel backwards agree."""
-    from flash_attention_metal_tpu.kernels import flash_attention_bwd_fused
-
-    q, k, v = make_qkv(rng_key, (1, 2, 512, 64))
-    do = jax.random.normal(jax.random.PRNGKey(3), q.shape, jnp.float32) * 0.1
-    o, lse = flash_attention_fwd(
-        q, k, v, causal=True, window=160, save_lse=True, interpret=INTERPRET
-    )
-    bs = BlockSizes(
-        block_q_dkv=128, block_kv_dkv=128, block_q_dq=128, block_kv_dq=128,
-        block_q_fused=128, block_kv_fused=128,
-    )
-    ref = flash_attention_bwd(
-        q, k, v, o, do, lse, causal=True, window=160, block_sizes=bs,
-        interpret=INTERPRET,
-    )
-    got = flash_attention_bwd_fused(
-        q, k, v, o, do, lse, causal=True, window=160, block_sizes=bs,
-        interpret=INTERPRET,
-    )
-    for name, a, b in zip("qkv", got, ref):
-        assert max_abs_diff(a, b) < 1e-5, name
+    o = q
+    lse = jnp.zeros(q.shape[:3], jnp.float32)
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        flash_attention_bwd(q, k, v, o, q * 0.1, lse, causal=True)
 
 
 # ---------------------------------------------------------------------------
-# Round 4: in-kernel softcap/ALiBi backward + native-GQA row-fold backward
-# (the dS-transform site of the reference backward, kernels.metal:1160-1169,
-# extended with the transforms its forward never had).
+# In-kernel softcap/ALiBi backward + native-GQA backward (the dS-transform
+# site of the reference backward, kernels.metal:1160-1169, extended with
+# the transforms its forward never had).
 # ---------------------------------------------------------------------------
 
 
@@ -355,14 +294,13 @@ def test_alibi_bwd_in_kernel_with_dslopes(rng_key, causal):
 @pytest.mark.parametrize("window", [None, 64])
 @pytest.mark.parametrize("causal", [False, True])
 def test_gqa_fold_bwd_vs_oracle(rng_key, causal, window):
-    """Native-GQA backward: row-fold (pos_div) path == broadcast oracle.
+    """Native-GQA backward == broadcast oracle.
 
-    dK/dV come out group-summed straight from the dKdV kernel's VMEM
-    accumulator — no jnp.repeat broadcast, no group-reduce pass."""
+    dK/dV come out group-summed straight from the dK/dV kernel's register
+    accumulators — no jnp.repeat broadcast, no group-reduce pass."""
     if window is not None and not causal:
         pytest.skip("window requires causal")
-    # Group 4: large enough that the measured route (ops.attention) takes
-    # the fold path by default, so this exercises fold end-to-end.
+    # Group 4: the dK/dV program loops over four query heads.
     q, _, _ = make_qkv(rng_key, (2, 8, 256, 64))
     _, k, v = make_qkv(jax.random.PRNGKey(9), (2, 2, 256, 64))
     do = jax.random.normal(jax.random.PRNGKey(3), q.shape, jnp.float32) * 0.1
@@ -391,8 +329,8 @@ def test_gqa_fold_bwd_vs_oracle(rng_key, causal, window):
 
 
 def test_gqa_fold_bwd_with_save_lse_and_segments(rng_key):
-    """Fold path composes with segment ids (row-repeated Q ids) and a
-    differentiable lse output."""
+    """Native GQA composes with segment ids and a differentiable lse
+    output."""
     from flash_attention_metal_tpu.config import SegmentIds
 
     q, _, _ = make_qkv(rng_key, (2, 8, 256, 64))
@@ -425,32 +363,9 @@ def test_gqa_fold_bwd_with_save_lse_and_segments(rng_key):
         assert max_abs_diff(a, b) < 1e-3
 
 
-def test_gqa_bwd_route_fold_equals_broadcast(rng_key, monkeypatch):
-    """Small groups (reps < 4) default to the broadcast backward (the
-    fold measured 9% slower at group 2 — experiments/gqa_bwd_pair.json);
-    forcing route="fold" via the autotune hook must give the same grads,
-    so the routing is a pure performance decision."""
-    from flash_attention_metal_tpu.harness import autotune
-
-    q, _, _ = make_qkv(rng_key, (2, 4, 256, 64))
-    _, k, v = make_qkv(jax.random.PRNGKey(9), (2, 2, 256, 64))
-    do = jax.random.normal(jax.random.PRNGKey(3), q.shape, jnp.float32) * 0.1
-
-    def loss(q_, k_, v_):
-        return jnp.sum(flash_attention(q_, k_, v_, causal=True) * do)
-
-    g_default = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)  # broadcast
-    monkeypatch.setattr(
-        autotune, "lookup_gqa_bwd_route", lambda *a, **kw: "fold"
-    )
-    g_fold = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
-    for a, b in zip(g_default, g_fold):
-        assert max_abs_diff(a, b) < 1e-3
-
-
 def test_dropout_softcap_alibi_bwd_composition(rng_key):
-    """Round-4 lifted gates: dropout composes with softcap+ALiBi+save_lse
-    on the pallas path, gradients matching the oracle bit-for-mask."""
+    """Dropout composes with softcap + ALiBi on the Pallas path,
+    gradients matching the oracle bit-for-mask."""
     q, k, v = make_qkv(rng_key, (1, 2, 256, 64))
     do = jax.random.normal(jax.random.PRNGKey(3), q.shape, jnp.float32) * 0.1
     slopes = jnp.array([0.25, 0.0625], jnp.float32)
@@ -500,8 +415,8 @@ def test_no_oracle_vjp_in_ext_bwd(rng_key):
     def check(jx):
         for eqn in jx.eqns:
             if "pallas" in str(eqn.primitive):
-                # The kernel's own VMEM score tile is (block_q, block_kv)
-                # by design; only HBM-level intermediates are the smell.
+                # The kernel's own score tile is (block_q, block_k) by
+                # design; only HBM-level intermediates are the smell.
                 continue
             for var in eqn.outvars:
                 shape = getattr(var.aval, "shape", ())
@@ -513,234 +428,3 @@ def test_no_oracle_vjp_in_ext_bwd(rng_key):
                 check(sub)
 
     check(jaxpr.jaxpr)
-
-
-# ---------------------------------------------------------------------------
-# Triangular fused backward (kernels/flash_tri.py, round 4)
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize(
-    "shape,blocks",
-    [
-        ((2, 2, 512, 64), (256, 256)),
-        ((1, 1, 1024, 64), (256, 512)),
-        ((3, 1, 768, 64), (256, 256)),  # batch not a power of two (fold=1)
-    ],
-)
-def test_tri_bwd_matches_split_and_oracle(rng_key, shape, blocks):
-    """The fused triangular backward must agree with the split FA-2
-    kernels AND the closed-form oracle on causal static-offset shapes."""
-    from flash_attention_metal_tpu.kernels.flash_tri import (
-        flash_attention_bwd_tri,
-    )
-
-    bq, bk = blocks
-    q, k, v = make_qkv(rng_key, shape, dtype=jnp.bfloat16)
-    o, lse = flash_attention_fwd(
-        q, k, v, causal=True, save_lse=True, interpret=INTERPRET
-    )
-    do = q * 0.01
-    dq_t, dk_t, dv_t = flash_attention_bwd_tri(
-        q, k, v, o, do, lse, block_q=bq, block_k=bk, interpret=INTERPRET
-    )
-    dq_s, dk_s, dv_s = flash_attention_bwd(
-        q, k, v, o, do, lse, causal=True, interpret=INTERPRET
-    )
-    dq_r, dk_r, dv_r = attention_reference_bwd(q, k, v, do, causal=True)
-    for t, s, r in ((dq_t, dq_s, dq_r), (dk_t, dk_s, dk_r),
-                    (dv_t, dv_s, dv_r)):
-        assert max_abs_diff(t, s) < 1e-3
-        assert max_abs_diff(t, r) < 1e-3
-
-
-@pytest.mark.parametrize(
-    "shape,blocks",
-    [
-        ((2, 2, 512, 64), (512, 512)),
-        ((1, 1, 1024, 64), (512, 512)),
-        ((1, 2, 1024, 64), (256, 512)),
-    ],
-)
-def test_tri_bwd_pv_transposed(rng_key, shape, blocks):
-    """Transposed-gradient mode (dV^T/dK^T/dQ^T wide-output matmuls,
-    wrapper transposes) == untransposed tri backward == oracle — the
-    round-5 flagship winner (experiments/tri_bwd_pvt.py, 1.34x over the
-    split pair)."""
-    from flash_attention_metal_tpu.kernels.flash_tri import (
-        flash_attention_bwd_tri,
-    )
-
-    bq, bk = blocks
-    q, k, v = make_qkv(rng_key, shape, dtype=jnp.bfloat16)
-    o, lse = flash_attention_fwd(
-        q, k, v, causal=True, save_lse=True, interpret=INTERPRET
-    )
-    do = q * 0.01
-    got = flash_attention_bwd_tri(
-        q, k, v, o, do, lse, block_q=bq, block_k=bk, pv_transposed=True,
-        interpret=INTERPRET,
-    )
-    want = flash_attention_bwd_tri(
-        q, k, v, o, do, lse, block_q=bq, block_k=bk, interpret=INTERPRET
-    )
-    ref = attention_reference_bwd(q, k, v, do, causal=True)
-    for g, w, r, name in zip(got, want, ref, ("dq", "dk", "dv")):
-        assert g.shape == w.shape, name
-        assert max_abs_diff(g, w) < 1e-3, name
-        assert max_abs_diff(g, r) < 1e-3, name
-
-
-def test_bwd_auto_heuristic_routes_tri_pvt(rng_key, monkeypatch):
-    """An UNTUNED plain-causal backward shape that fits 512 tiles routes
-    the transposed-gradient tri kernel by default (round 5); ineligible
-    shapes (n_q not 512-tileable) keep the split default."""
-    from flash_attention_metal_tpu.harness import autotune
-    from flash_attention_metal_tpu.kernels import flash_tri as tri_mod
-    from flash_attention_metal_tpu.kernels.flash_bwd import (
-        flash_attention_bwd_auto,
-    )
-
-    monkeypatch.setattr(autotune, "_MEMO", {})
-    calls = []
-    real = tri_mod.flash_attention_bwd_tri
-
-    def spy(*a, **kw):
-        calls.append((kw.get("block_q"), kw.get("pv_transposed")))
-        return real(*a, **kw)
-
-    monkeypatch.setattr(tri_mod, "flash_attention_bwd_tri", spy)
-    q, k, v = make_qkv(rng_key, (2, 1, 512, 64), dtype=jnp.bfloat16)
-    o, lse = flash_attention_fwd(
-        q, k, v, causal=True, save_lse=True, interpret=INTERPRET
-    )
-    do = q * 0.01
-    got = flash_attention_bwd_auto(
-        q, k, v, o, do, lse, causal=True, interpret=INTERPRET
-    )
-    assert calls == [(512, True)]
-    ref = attention_reference_bwd(q, k, v, do, causal=True)
-    for g, r in zip(got, ref):
-        assert max_abs_diff(g, r) < 1e-3
-    # Non-512-tileable shape: no tri call (split default).
-    calls.clear()
-    q2, k2, v2 = make_qkv(rng_key, (2, 1, 256, 64), dtype=jnp.bfloat16)
-    o2, lse2 = flash_attention_fwd(
-        q2, k2, v2, causal=True, save_lse=True, interpret=INTERPRET
-    )
-    flash_attention_bwd_auto(
-        q2, k2, v2, o2, q2 * 0.01, lse2, causal=True, interpret=INTERPRET
-    )
-    assert calls == []
-
-
-def test_tri_bwd_dlse_fold(rng_key):
-    """The lse cotangent folds into the tri backward's delta precompute
-    exactly as in the split path."""
-    from flash_attention_metal_tpu.kernels.flash_tri import (
-        flash_attention_bwd_tri,
-    )
-
-    q, k, v = make_qkv(rng_key, (1, 2, 512, 64), dtype=jnp.bfloat16)
-    o, lse = flash_attention_fwd(
-        q, k, v, causal=True, save_lse=True, interpret=INTERPRET
-    )
-    do = q * 0.01
-    dlse = jnp.sin(jnp.arange(2 * 512, dtype=jnp.float32)).reshape(1, 2, 512)
-    got = flash_attention_bwd_tri(
-        q, k, v, o, do, lse, dlse, interpret=INTERPRET
-    )
-    want = flash_attention_bwd(
-        q, k, v, o, do, lse, None, dlse, causal=True, interpret=INTERPRET
-    )
-    for g, w in zip(got, want):
-        assert max_abs_diff(g, w) < 1e-3
-
-
-def test_bwd_auto_routes_tri_from_cache(rng_key, tmp_path, monkeypatch):
-    """A persisted {"impl": "tri"} bwd cache entry routes the dispatcher
-    through the fused triangular kernel — and unsupported feature
-    combinations (window) fall back to the split path, both correct."""
-    import json as _json
-
-    from flash_attention_metal_tpu.harness import autotune
-    from flash_attention_metal_tpu.kernels.flash_bwd import (
-        flash_attention_bwd_auto,
-    )
-
-    b, h, n, d = 1, 1, 512, 64
-    key = autotune._key("bwd", b, h, n, n, d, True, jnp.bfloat16)
-    cache = {key: {"impl": "tri",
-                   "blocks": {"block_q": 256, "block_k": 256}, "us": 1.0}}
-    path = tmp_path / "cache.json"
-    path.write_text(_json.dumps(cache))
-    monkeypatch.setattr(autotune, "DEFAULT_CACHE", str(path))
-    monkeypatch.setattr(autotune, "_MEMO", None)
-
-    q, k, v = make_qkv(rng_key, (b, h, n, d), dtype=jnp.bfloat16)
-    o, lse = flash_attention_fwd(
-        q, k, v, causal=True, save_lse=True, interpret=INTERPRET
-    )
-    do = q * 0.01
-    got = flash_attention_bwd_auto(
-        q, k, v, o, do, lse, causal=True, interpret=INTERPRET
-    )
-    want = attention_reference_bwd(q, k, v, do, causal=True)
-    for g, w in zip(got, want):
-        assert max_abs_diff(g, w) < 1e-3
-
-    # Window attention on the same (tri-tuned) shape: must fall back.
-    ow, lsew = flash_attention_fwd(
-        q, k, v, causal=True, window=128, save_lse=True, interpret=INTERPRET
-    )
-    goww = flash_attention_bwd_auto(
-        q, k, v, ow, do, lsew, causal=True, window=128, interpret=INTERPRET
-    )
-    www = flash_attention_bwd(
-        q, k, v, ow, do, lsew, causal=True, window=128, interpret=INTERPRET
-    )
-    for g, w in zip(goww, www):
-        assert max_abs_diff(g, w) < 1e-6  # identical split path
-    monkeypatch.setattr(autotune, "_MEMO", None)
-
-
-def test_tri_bwd_gqa_fold_pos_div(rng_key):
-    """The tri backward under the GQA row-fold convention (pos_div=group)
-    matches the split kernels' fold path on the same folded operands."""
-    from flash_attention_metal_tpu.kernels.flash_tri import (
-        flash_attention_bwd_tri,
-    )
-    from flash_attention_metal_tpu.ops.attention import (
-        fold_gqa_rows,
-        unfold_gqa_rows,
-    )
-
-    b, hq, hkv, n, d = 2, 4, 2, 512, 64
-    group = hq // hkv
-    q, _, _ = make_qkv(rng_key, (b, hq, n, d), dtype=jnp.bfloat16)
-    _, k, v = make_qkv(jax.random.fold_in(rng_key, 1), (b, hkv, n, d),
-                       dtype=jnp.bfloat16)
-    kb = jnp.repeat(k, group, axis=1)
-    vb = jnp.repeat(v, group, axis=1)
-    o, lse = flash_attention_fwd(
-        q, kb, vb, causal=True, save_lse=True, interpret=INTERPRET
-    )
-    do = q * 0.01
-    qf, of, dof, lsef = (fold_gqa_rows(x, hkv) for x in (q, o, do, lse))
-    got = flash_attention_bwd_tri(
-        qf, k, v, of, dof, lsef, pos_div=group, interpret=INTERPRET
-    )
-    want = flash_attention_bwd(
-        qf, k, v, of, dof, lsef, causal=True, pos_div=group,
-        interpret=INTERPRET,
-    )
-    for g, w in zip(got, want):
-        assert max_abs_diff(g, w) < 1e-3
-    # And the unfolded dQ matches the broadcast-path oracle gradient.
-    dq = unfold_gqa_rows(got[0], hq, n)
-    dq_r, dk_r, dv_r = attention_reference_bwd(q, kb, vb, do, causal=True)
-    assert max_abs_diff(dq, dq_r) < 1e-3
-    dk_g = dk_r.reshape(b, hkv, group, n, d).sum(axis=2)
-    dv_g = dv_r.reshape(b, hkv, group, n, d).sum(axis=2)
-    assert max_abs_diff(got[1], dk_g) < 1e-3
-    assert max_abs_diff(got[2], dv_g) < 1e-3

@@ -1,9 +1,9 @@
-"""Forward kernel ladder vs the golden oracle.
+"""Forward kernel vs the golden oracle.
 
 Mirrors the reference's verification ladder and tolerances (SURVEY.md §2
-H4): fp32 rungs at 1e-3 (main.mm:239,253,292), half rungs at 5e-3 / 1e-2
-(main.mm:375,452,591).  Kernels run in Pallas interpreter mode on the CPU
-backend; the same code compiles via Mosaic on TPU.
+H4): fp32 at 1e-3 (main.mm:239,253,292), half precision at 1e-2
+(main.mm:452,591).  The Triton-route kernel runs in Pallas interpret mode
+on the CPU backend; the same code compiles for the GPU.
 """
 
 import jax
@@ -12,20 +12,12 @@ import numpy as np
 import pytest
 
 from flash_attention_metal_tpu.config import BlockSizes
-from flash_attention_metal_tpu.kernels import (
-    flash_attention_fwd,
-    flash_attention_mxu,
-    flash_attention_v1,
-    flash_attention_v2,
-    naive_attention,
-)
+from flash_attention_metal_tpu.kernels import flash_attention_fwd
 from flash_attention_metal_tpu.reference import (
     attention_reference,
     attention_reference_with_lse,
     make_qkv,
 )
-
-INTERPRET = jax.default_backend() != "tpu"
 
 # Reference tolerance ladder.
 TOL_FP32 = 1e-3
@@ -37,110 +29,73 @@ def max_abs_diff(a, b):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("n", [128, 256, 512])
-def test_naive_vs_oracle(rng_key, n, causal):
-    q, k, v = make_qkv(rng_key, (1, 2, n, 64))
-    got = naive_attention(q, k, v, causal=causal, interpret=INTERPRET)
-    want = attention_reference(q, k, v, causal=causal)
-    assert max_abs_diff(got, want) < TOL_FP32
-    assert not bool(jnp.any(jnp.isnan(got)))
-
-
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("n", [128, 256, 1024])
-def test_flash_v1_vs_oracle(rng_key, n, causal):
-    q, k, v = make_qkv(rng_key, (1, 2, n, 64))
-    got = flash_attention_v1(q, k, v, causal=causal, interpret=INTERPRET)
-    want = attention_reference(q, k, v, causal=causal)
-    assert max_abs_diff(got, want) < TOL_FP32
-
-
-def test_flash_v1_vs_naive(rng_key):
-    """Differential rung-to-rung test (main.mm:245-256 analog)."""
-    q, k, v = make_qkv(rng_key, (1, 1, 256, 64))
-    v1 = flash_attention_v1(q, k, v, interpret=INTERPRET)
-    nv = naive_attention(q, k, v, interpret=INTERPRET)
-    assert max_abs_diff(v1, nv) < TOL_FP32
-
-
-@pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize(
     "blocks",
     [
-        BlockSizes(block_q=128, block_k_major=128, block_k=128),
-        BlockSizes(block_q=128, block_k_major=256, block_k=128),
-        BlockSizes(block_q=256, block_k_major=512, block_k=256),
+        BlockSizes(block_q=16, block_k=16),
+        BlockSizes(block_q=64, block_k=32),
+        BlockSizes(block_q=32, block_k=128),
+        BlockSizes(block_q=256, block_k=256),
     ],
 )
-def test_flash_v2_block_sweep(rng_key, causal, blocks):
-    q, k, v = make_qkv(rng_key, (1, 2, 512, 64))
-    got = flash_attention_v2(
-        q, k, v, causal=causal, block_sizes=blocks, interpret=INTERPRET
-    )
+def test_block_size_sweep(rng_key, causal, blocks):
+    """Any power-of-two tile pair gives the oracle's answer (one query
+    block per program, a loop over KV blocks)."""
+    q, k, v = make_qkv(rng_key, (1, 2, 256, 64))
+    got = flash_attention_fwd(q, k, v, causal=causal, block_sizes=blocks)
     want = attention_reference(q, k, v, causal=causal)
     assert max_abs_diff(got, want) < TOL_FP32
     assert not bool(jnp.any(jnp.isnan(got)))
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 100, 40), (2, 3, 77, 24), (1, 1, 1, 8)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_unaligned_shapes_padded(rng_key, shape, causal):
+    """Sequence lengths that are not a multiple of the tile, and head
+    dims that are not a power of two, are padded and masked."""
+    q, k, v = make_qkv(rng_key, shape)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, save_lse=True)
+    want_o, want_lse = attention_reference_with_lse(q, k, v, causal=causal)
+    assert o.shape == q.shape and lse.shape == q.shape[:3]
+    assert max_abs_diff(o, want_o) < TOL_FP32
+    assert max_abs_diff(lse, want_lse) < TOL_FP32
 
 
 @pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float16])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_mxu_half_precision(rng_key, dtype, causal):
+    """Half-precision inputs compute natively (no fp32 upcast) with fp32
+    softmax statistics and output in the input dtype."""
     q, k, v = make_qkv(rng_key, (2, 4, 256, 64), dtype=dtype)
-    got = flash_attention_mxu(q, k, v, causal=causal, interpret=INTERPRET)
+    got = flash_attention_fwd(q, k, v, causal=causal)
     want = attention_reference(q, k, v, causal=causal)
+    assert got.dtype == dtype
     assert max_abs_diff(got, want) < TOL_HALF
 
 
 def test_flash_mxu_lse(rng_key):
     q, k, v = make_qkv(rng_key, (1, 2, 256, 64))
-    o, lse_lanes = flash_attention_mxu(q, k, v, save_lse=True, interpret=INTERPRET)
+    o, lse = flash_attention_fwd(q, k, v, save_lse=True)
     _, want_lse = attention_reference_with_lse(q, k, v)
-    # All lanes replicated.
+    assert lse.shape == (1, 2, 256) and lse.dtype == jnp.float32
     np.testing.assert_allclose(
-        np.asarray(lse_lanes[..., 0]), np.asarray(lse_lanes[..., 64]), atol=0
-    )
-    np.testing.assert_allclose(
-        np.asarray(lse_lanes[..., 0]), np.asarray(want_lse), atol=1e-3
+        np.asarray(lse), np.asarray(want_lse), atol=1e-3
     )
 
 
 def test_flash_mxu_causal_lse(rng_key):
     q, k, v = make_qkv(rng_key, (1, 1, 256, 64))
-    o, lse_lanes = flash_attention_mxu(
-        q, k, v, causal=True, save_lse=True, interpret=INTERPRET
-    )
+    o, lse = flash_attention_fwd(q, k, v, causal=True, save_lse=True)
     want_o, want_lse = attention_reference_with_lse(q, k, v, causal=True)
     assert max_abs_diff(o, want_o) < TOL_FP32
     np.testing.assert_allclose(
-        np.asarray(lse_lanes[..., 0]), np.asarray(want_lse), atol=1e-3
+        np.asarray(lse), np.asarray(want_lse), atol=1e-3
     )
-
-
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("batch,n", [(16, 128), (8, 256), (6, 128), (3, 128)])
-def test_lean_batch_fold_vs_oracle(rng_key, batch, n, causal):
-    """The lean path's batch-fold (several batch elements per grid step)
-    must be a pure grid repack: outputs and LSE match the oracle for
-    power-of-two folds, non-dividing batches (fold clamps to a divisor),
-    and both causal modes."""
-    from flash_attention_metal_tpu.kernels.flash_fwd import _lean_batch_fold
-
-    q, k, v = make_qkv(rng_key, (batch, 1, n, 64), dtype=jnp.bfloat16)
-    o, lse_lanes = flash_attention_mxu(
-        q, k, v, causal=causal, save_lse=True, interpret=INTERPRET
-    )
-    want_o, want_lse = attention_reference_with_lse(q, k, v, causal=causal)
-    assert max_abs_diff(o, want_o) < TOL_HALF
-    np.testing.assert_allclose(
-        np.asarray(lse_lanes[..., 0]), np.asarray(want_lse), atol=2e-2
-    )
-    fold = _lean_batch_fold(batch, n, n)
-    assert batch % fold == 0 and fold * n <= 1024
 
 
 def test_head_dim_128(rng_key):
     q, k, v = make_qkv(rng_key, (1, 2, 256, 128))
-    got = flash_attention_fwd(q, k, v, interpret=INTERPRET)
+    got = flash_attention_fwd(q, k, v)
     want = attention_reference(q, k, v)
     assert max_abs_diff(got, want) < TOL_FP32
 
@@ -150,72 +105,31 @@ def test_cross_attention_lengths(rng_key):
     q = jax.random.uniform(kq, (1, 2, 128, 64), jnp.float32, -1, 1)
     k = jax.random.uniform(kk, (1, 2, 512, 64), jnp.float32, -1, 1)
     v = jax.random.uniform(kv2, (1, 2, 512, 64), jnp.float32, -1, 1)
-    got = flash_attention_fwd(q, k, v, interpret=INTERPRET)
+    got = flash_attention_fwd(q, k, v)
     want = attention_reference(q, k, v)
     assert max_abs_diff(got, want) < TOL_FP32
-
-
-def test_lagged_base_rebase(rng_key):
-    """Multi-block online path where a LATE KV block holds the row max.
-
-    Exercises the lagged-base softmax rebase (flash_fwd._EXP2_CLAMP
-    path): the first blocks run with base 0/early maxima and the state
-    must rebase correctly when block 3's much larger scores arrive.
-    """
-    n, bq = 512, 128
-    q, k, v = make_qkv(rng_key, (1, 1, n, 64))
-    # Inflate the last KV block's keys so its scores dominate (but stay
-    # inside the lazy-softmax envelope: |scores| < ~33 nats).
-    k = k.at[:, :, 384:, :].multiply(4.0)
-    bs = BlockSizes(block_q=bq, block_k_major=bq, block_k=bq)
-    for causal in (False, True):
-        got = flash_attention_fwd(
-            q, k, v, causal=causal, block_sizes=bs, interpret=INTERPRET
-        )
-        want = attention_reference(q, k, v, causal=causal)
-        assert max_abs_diff(got, want) < TOL_FP32, causal
 
 
 def test_eager_softmax_extreme_magnitudes(rng_key):
-    """lazy_softmax=False is exact for arbitrary score magnitudes.
-
-    Scores here jump ~+700 nats between KV blocks — outside the lazy
-    path's documented envelope; the eager fallback must stay exact.
-    """
+    """The online softmax is exact for arbitrary score magnitudes: scores
+    here jump ~+700 nats between KV blocks."""
     n, bq = 512, 128
     q, k, v = make_qkv(rng_key, (1, 1, n, 64))
     k = k.at[:, :, 384:, :].multiply(60.0)
-    bs = BlockSizes(block_q=bq, block_k_major=bq, block_k=bq)
-    got = flash_attention_fwd(
-        q, k, v, block_sizes=bs, lazy_softmax=False, interpret=INTERPRET
-    )
-    want = attention_reference(q, k, v)
-    assert max_abs_diff(got, want) < TOL_FP32
-
-
-def test_lagged_base_negative_scores_in_envelope(rng_key):
-    """Scores well below the initial base 0 (but inside the documented
-    [-87, +66] nat envelope) stay exact under the lazy softmax."""
-    n, bq = 512, 128
-    q, k, v = make_qkv(rng_key, (1, 1, n, 64))
-    q = q - 2.0  # uniform shift: scores ~ -40..-25 nats after scaling
-    k = k + 2.0
-    bs = BlockSizes(block_q=bq, block_k_major=bq, block_k=bq)
-    got = flash_attention_fwd(q, k, v, block_sizes=bs, interpret=INTERPRET)
+    bs = BlockSizes(block_q=bq, block_k=bq)
+    got = flash_attention_fwd(q, k, v, block_sizes=bs)
     want = attention_reference(q, k, v)
     assert max_abs_diff(got, want) < TOL_FP32
 
 
 def test_eager_softmax_all_negative_extreme(rng_key):
-    """Rows whose max score sits below -87 nats need the eager fallback."""
+    """Rows whose max score sits far below zero (~-750 nats) stay exact."""
     n, bq = 512, 128
     q, k, v = make_qkv(rng_key, (1, 1, n, 64))
     q = q - 8.0  # scores ~ -750..-550 nats: outside the lazy envelope
     k = k + 8.0
-    bs = BlockSizes(block_q=bq, block_k_major=bq, block_k=bq)
-    got = flash_attention_fwd(
-        q, k, v, block_sizes=bs, lazy_softmax=False, interpret=INTERPRET
-    )
+    bs = BlockSizes(block_q=bq, block_k=bq)
+    got = flash_attention_fwd(q, k, v, block_sizes=bs)
     want = attention_reference(q, k, v)
     assert max_abs_diff(got, want) < TOL_FP32
 
@@ -224,10 +138,9 @@ def test_eager_softmax_all_negative_extreme(rng_key):
 def test_sliding_window_vs_oracle(rng_key, window):
     n = 512
     q, k, v = make_qkv(rng_key, (1, 2, n, 64))
-    bs = BlockSizes(block_q=128, block_k_major=128, block_k=128)
+    bs = BlockSizes(block_q=64, block_k=64)
     got = flash_attention_fwd(
         q, k, v, causal=True, window=window, block_sizes=bs,
-        interpret=INTERPRET,
     )
     want = attention_reference(q, k, v, causal=True, window=window)
     assert max_abs_diff(got, want) < TOL_FP32
@@ -240,10 +153,9 @@ def test_sliding_window_with_offset(rng_key):
     k = jax.random.uniform(kk, (2, 2, 512, 64), jnp.float32, -1, 1)
     v = jax.random.uniform(kv2, (2, 2, 512, 64), jnp.float32, -1, 1)
     offsets = jnp.asarray([256, 380], jnp.int32)
-    bs = BlockSizes(block_q=128, block_k_major=128, block_k=128)
+    bs = BlockSizes(block_q=64, block_k=64)
     got = flash_attention_fwd(
         q, k, v, offsets, causal=True, window=100, block_sizes=bs,
-        interpret=INTERPRET,
     )
     want = attention_reference(
         q, k, v, causal=True, window=100,
@@ -269,10 +181,9 @@ def test_segment_ids_vs_oracle(rng_key, causal):
     q, k, v = make_qkv(rng_key, (2, 2, n, 64))
     seg = _packed_segments(n)
     sids = SegmentIds(q=seg, kv=seg)
-    bs = BlockSizes(block_q=128, block_k_major=128, block_k=128)
+    bs = BlockSizes(block_q=64, block_k=64)
     got = flash_attention_fwd(
         q, k, v, causal=causal, segment_ids=sids, block_sizes=bs,
-        interpret=INTERPRET,
     )
     want = attention_reference(q, k, v, causal=causal, segment_ids=sids)
     assert max_abs_diff(got, want) < TOL_FP32
@@ -300,11 +211,11 @@ def test_kv_positions_rolling_cache_mask(rng_key):
     pos[:, slots] = np.arange(cur)
 
     offs = jnp.asarray([cur - 128], jnp.int32)
-    bs = BlockSizes(block_q=128, block_k_major=128, block_k=128)
+    bs = BlockSizes(block_q=64, block_k=64)
     got = flash_attention_fwd(
         q, jnp.asarray(kcache), jnp.asarray(vcache), offs,
         causal=True, window=W, kv_positions=jnp.asarray(pos),
-        block_sizes=bs, interpret=INTERPRET,
+        block_sizes=bs,
     )
     want = attention_reference(
         q, hist_k, hist_v, causal=True, window=W,
@@ -348,7 +259,6 @@ def test_feature_combination_fuzz(seed):
         causal=causal,
         window=window or None,
         segment_ids=sids,
-        interpret=INTERPRET,
     )
     got = flash_attention(q, k, v, **kwargs)
     reps = heads // kv_heads
@@ -366,16 +276,15 @@ def test_sinks_beyond_window(rng_key):
     """Attention sinks stay visible past the sliding window (fwd)."""
     n = 512
     q, k, v = make_qkv(rng_key, (1, 2, n, 64))
-    bs = BlockSizes(block_q=128, block_k_major=128, block_k=128)
+    bs = BlockSizes(block_q=64, block_k=64)
     got = flash_attention_fwd(
         q, k, v, causal=True, window=100, sinks=4, block_sizes=bs,
-        interpret=INTERPRET,
     )
     want = attention_reference(q, k, v, causal=True, window=100, sinks=4)
     assert max_abs_diff(got, want) < TOL_FP32
     # Sanity: differs from the no-sink result.
     nosink = flash_attention_fwd(
-        q, k, v, causal=True, window=100, block_sizes=bs, interpret=INTERPRET
+        q, k, v, causal=True, window=100, block_sizes=bs
     )
     assert max_abs_diff(got, nosink) > 1e-3
 
@@ -399,11 +308,11 @@ def test_sinks_rolling_cache_positions(rng_key):
     pos[:, slots] = np.arange(cur)
 
     offs = jnp.asarray([cur - 128], jnp.int32)
-    bs = BlockSizes(block_q=128, block_k_major=128, block_k=128)
+    bs = BlockSizes(block_q=64, block_k=64)
     got = flash_attention_fwd(
         q, jnp.asarray(kcache), jnp.asarray(vcache), offs,
         causal=True, window=W, sinks=S, kv_positions=jnp.asarray(pos),
-        block_sizes=bs, interpret=INTERPRET,
+        block_sizes=bs,
     )
     want = attention_reference(
         q, hist_k, hist_v, causal=True, window=W, sinks=S,
@@ -427,10 +336,9 @@ def _alibi_test_slopes(h):
 @pytest.mark.parametrize("softcap", [30.0, 8.0])
 def test_softcap_vs_oracle(rng_key, causal, softcap):
     q, k, v = make_qkv(rng_key, (1, 2, 256, 64))
-    bs = BlockSizes(block_q=128, block_k_major=128, block_k=128)
+    bs = BlockSizes(block_q=64, block_k=64)
     got = flash_attention_fwd(
         q, k, v, causal=causal, softcap=softcap, block_sizes=bs,
-        interpret=INTERPRET,
     )
     want = attention_reference(q, k, v, causal=causal, softcap=softcap)
     assert max_abs_diff(got, want) < TOL_FP32
@@ -440,10 +348,9 @@ def test_softcap_vs_oracle(rng_key, causal, softcap):
 def test_alibi_vs_oracle(rng_key, causal):
     q, k, v = make_qkv(rng_key, (2, 4, 256, 64))
     slopes = _alibi_test_slopes(4)
-    bs = BlockSizes(block_q=128, block_k_major=128, block_k=128)
+    bs = BlockSizes(block_q=64, block_k=64)
     got = flash_attention_fwd(
         q, k, v, causal=causal, alibi_slopes=slopes, block_sizes=bs,
-        interpret=INTERPRET,
     )
     want = attention_reference(q, k, v, causal=causal, alibi_slopes=slopes)
     assert max_abs_diff(got, want) < TOL_FP32
@@ -461,7 +368,7 @@ def test_alibi_softcap_window_gqa_combination(rng_key):
     slopes = _alibi_test_slopes(4)
     got = flash_attention(
         q, k2, v2, causal=True, window=192, softcap=20.0,
-        alibi_slopes=slopes, interpret=INTERPRET,
+        alibi_slopes=slopes,
     )
     kr, vr = jnp.repeat(k2, 2, axis=1), jnp.repeat(v2, 2, axis=1)
     want = attention_reference(
@@ -489,11 +396,11 @@ def test_alibi_rolling_cache_positions(rng_key):
     pos[:, slots] = np.arange(cur)
 
     offs = jnp.asarray([cur - 128], jnp.int32)
-    bs = BlockSizes(block_q=128, block_k_major=128, block_k=128)
+    bs = BlockSizes(block_q=64, block_k=64)
     got = flash_attention_fwd(
         q, jnp.asarray(kcache), jnp.asarray(vcache), offs,
         causal=True, window=120, kv_positions=jnp.asarray(pos),
-        alibi_slopes=slopes, block_sizes=bs, interpret=INTERPRET,
+        alibi_slopes=slopes, block_sizes=bs,
     )
     want = attention_reference(
         q, hist_k, hist_v, causal=True, window=120,
@@ -516,7 +423,7 @@ def test_softcap_alibi_grads_match_oracle(rng_key):
         lambda a, b, c, s: loss(
             lambda *x: flash_attention(
                 x[0], x[1], x[2], causal=True, softcap=20.0,
-                alibi_slopes=x[3], interpret=INTERPRET,
+                alibi_slopes=x[3],
             ),
             a, b, c, s,
         ),
@@ -534,110 +441,3 @@ def test_softcap_alibi_grads_match_oracle(rng_key):
     )(q, k, v, slopes)
     for name, a, b in zip("dq dk dv dslopes".split(), g, gr):
         assert max_abs_diff(a, b) < 1e-2, name
-
-
-@pytest.mark.parametrize("shape", [(2, 1, 1024), (1, 2, 512), (4, 2, 256)])
-def test_tri_kernel_vs_oracle(rng_key, shape):
-    """Triangular statically-unrolled causal kernel == causal oracle
-    (visible-prefix static slices, diagonal-only masking, register
-    online softmax)."""
-    from flash_attention_metal_tpu.kernels import flash_attention_tri
-    from flash_attention_metal_tpu.reference.oracle import (
-        attention_reference_with_lse,
-    )
-
-    b, h, n = shape
-    q, k, v = make_qkv(rng_key, (b, h, n, 64), dtype=jnp.bfloat16)
-    o, lse = flash_attention_tri(q, k, v, save_lse=True, interpret=INTERPRET)
-    o_r, lse_r = attention_reference_with_lse(q, k, v, causal=True)
-    assert max_abs_diff(o, o_r) < 1e-2
-    assert max_abs_diff(lse[..., 0], lse_r) < 1e-2
-
-
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize(
-    "shape,bq",
-    [((2, 2, 512), 512), ((1, 2, 1024), 256), ((8, 1, 128), 128)],
-)
-def test_lean_pv_transposed(rng_key, shape, bq, causal):
-    """Lean-path transposed-PV mode (BlockSizes.lean_pv_t) == the
-    untransposed lean path == oracle, including the batch-folded
-    small-N case and save_lse."""
-    from flash_attention_metal_tpu.config import BlockSizes
-
-    b, h, n = shape
-    q, k, v = make_qkv(rng_key, (b, h, n, 64), dtype=jnp.bfloat16)
-    bs = lambda pvt: BlockSizes(
-        block_q=bq, block_k_major=n, block_k=n, lean_pv_t=pvt
-    )
-    got, lse_t = flash_attention_fwd(
-        q, k, v, causal=causal, block_sizes=bs(True), save_lse=True,
-        interpret=INTERPRET,
-    )
-    want, lse_u = flash_attention_fwd(
-        q, k, v, causal=causal, block_sizes=bs(False), save_lse=True,
-        interpret=INTERPRET,
-    )
-    assert got.shape == q.shape
-    assert max_abs_diff(got, want) < 1e-3
-    assert max_abs_diff(lse_t, lse_u) == 0.0
-    ref = attention_reference(q, k, v, causal=causal)
-    assert max_abs_diff(got, ref) < 1e-2
-
-
-@pytest.mark.parametrize("shape", [(2, 1, 1024), (1, 2, 512), (3, 2, 512)])
-def test_tri_kernel_pv_transposed(rng_key, shape):
-    """Transposed-PV mode (o^T accumulated in-kernel, wrapper
-    transposes) is numerically identical to the untransposed tri kernel
-    and matches the oracle — the round-5 flagship winner
-    (experiments/tri_pvt.py)."""
-    from flash_attention_metal_tpu.kernels import flash_attention_tri
-    from flash_attention_metal_tpu.reference.oracle import (
-        attention_reference_with_lse,
-    )
-
-    b, h, n = shape
-    q, k, v = make_qkv(rng_key, (b, h, n, 64), dtype=jnp.bfloat16)
-    o, lse = flash_attention_tri(
-        q, k, v, save_lse=True, pv_transposed=True, block_q=512,
-        block_k=512, interpret=INTERPRET,
-    )
-    assert o.shape == q.shape
-    o_r, lse_r = attention_reference_with_lse(q, k, v, causal=True)
-    assert max_abs_diff(o, o_r) < 1e-2
-    assert max_abs_diff(lse[..., 0], lse_r) < 1e-2
-    # Exact agreement with the untransposed kernel at the same tiles.
-    o_u = flash_attention_tri(
-        q, k, v, block_q=512, block_k=512, interpret=INTERPRET
-    )
-    assert max_abs_diff(o, o_u) < 2e-2
-    # Cross-shape with a fully-masked q block (negative static offset).
-    q2, _, _ = make_qkv(rng_key, (1, 1, 1024, 64), dtype=jnp.bfloat16)
-    _, k2, v2 = make_qkv(jax.random.PRNGKey(9), (1, 1, 512, 64),
-                         dtype=jnp.bfloat16)
-    o2 = flash_attention_tri(
-        q2, k2, v2, pv_transposed=True, block_q=512, block_k=512,
-        interpret=INTERPRET,
-    )
-    o2_u = flash_attention_tri(
-        q2, k2, v2, block_q=512, block_k=512, interpret=INTERPRET
-    )
-    # Same math, transposed accumulation order: ulp-level agreement.
-    assert max_abs_diff(o2, o2_u) < 1e-3
-
-
-def test_tri_kernel_gqa_and_offset(rng_key):
-    from flash_attention_metal_tpu.kernels import flash_attention_tri
-
-    q, _, _ = make_qkv(rng_key, (2, 4, 512, 64), dtype=jnp.bfloat16)
-    _, k, v = make_qkv(jax.random.PRNGKey(9), (2, 2, 512, 64), dtype=jnp.bfloat16)
-    o = flash_attention_tri(q, k, v, interpret=INTERPRET)
-    o_r = attention_reference(
-        q, jnp.repeat(k, 2, 1), jnp.repeat(v, 2, 1), causal=True
-    )
-    assert max_abs_diff(o, o_r) < 1e-2
-    # decode-style end-aligned offset (n_q < n_kv)
-    q2, k2, v2 = make_qkv(rng_key, (1, 1, 256, 64), dtype=jnp.bfloat16)
-    o2 = flash_attention_tri(q2[:, :, :128], k2, v2, interpret=INTERPRET)
-    o2_r = attention_reference(q2[:, :, :128], k2, v2, causal=True)
-    assert max_abs_diff(o2, o2_r) < 1e-2

@@ -214,3 +214,22 @@ def test_engine_stats():
     assert st["tokens"] == 10.0, st
     assert st["tokens_per_s"] > 0 and st["ms_per_step"] > 0
     assert st["steps"] >= 1
+
+
+def test_blockwise_chunk_need_not_divide_vocab():
+    """A vocabulary the requested chunk does not divide (Llama-3's 128256
+    is not a multiple of 4096) takes the largest dividing chunk and
+    still equals the dense cross-entropy."""
+    import jax.numpy as jnp
+
+    from flash_attention_metal_tpu.models.losses import blockwise_softmax_xent
+
+    key = jax.random.PRNGKey(3)
+    h = jax.random.normal(key, (2, 5, 16), jnp.float32)
+    w = jax.random.normal(jax.random.PRNGKey(4), (16, 334), jnp.float32)
+    t = jax.random.randint(jax.random.PRNGKey(5), (2, 5), 0, 334)
+    got = blockwise_softmax_xent(h, w, t, vocab_chunk=128)
+    logp = jax.nn.log_softmax(h @ w, axis=-1)
+    want = -jnp.mean(jnp.take_along_axis(logp, t[..., None], -1))
+    assert abs(float(got) - float(want)) < 1e-4
+

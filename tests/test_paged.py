@@ -64,7 +64,7 @@ def test_paged_kernel_matches_dense(t_new):
     lengths = jnp.asarray([n_kv - t_new, 3 * PS - t_new], jnp.int32)
 
     got = flash_attention_paged(
-        q, pool_k, pool_v, table, lengths, interpret=True
+        q, pool_k, pool_v, table, lengths
     )
     want = flash_attention_fwd(
         q,
@@ -72,8 +72,7 @@ def test_paged_kernel_matches_dense(t_new):
         v,
         q_offset=lengths,
         causal=True,
-        block_sizes=BlockSizes(block_q=128, block_k_major=PS, block_k=PS),
-        interpret=True,
+        block_sizes=BlockSizes(block_q=128, block_k=PS),
     )
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-5)
 
@@ -371,12 +370,10 @@ def test_paged_quant_kernel_matches_dense_quant(t_new):
     lengths = jnp.asarray([n_kv - t_new, 3 * PS - t_new], jnp.int32)
     got = flash_attention_paged_quant(
         q, pool_kq, pool_vq, pool_ks, pool_vs, table, lengths,
-        interpret=True,
     )
     want = flash_attention_quant(
         q, qkv, lengths, causal=True,
-        block_sizes=BlockSizes(block_q=128, block_k_major=PS, block_k=PS),
-        interpret=True,
+        block_sizes=BlockSizes(block_q=128, block_k=PS),
     )
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-5)
 
@@ -520,13 +517,12 @@ def test_paged_kernel_transforms_match_dense():
     lengths = jnp.asarray([n_kv - 128, 3 * PS - 128], jnp.int32)
     got = flash_attention_paged(
         q, pool_k, pool_v, table, lengths, softcap=20.0,
-        alibi_slopes=slopes, interpret=True,
+        alibi_slopes=slopes,
     )
     want = flash_attention_fwd(
         q, k, v, q_offset=lengths, causal=True, softcap=20.0,
         alibi_slopes=slopes,
-        block_sizes=BlockSizes(block_q=128, block_k_major=PS, block_k=PS),
-        interpret=True,
+        block_sizes=BlockSizes(block_q=128, block_k=PS),
     )
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-5)
 
@@ -571,12 +567,11 @@ def test_paged_quant_kernel_transforms_match_dense_quant():
     lengths = jnp.asarray([n_kv - 1, 3 * PS - 1], jnp.int32)
     got = flash_attention_paged_quant(
         q, pool_kq, pool_vq, pool_ks, pool_vs, table, lengths,
-        softcap=20.0, alibi_slopes=slopes, interpret=True,
+        softcap=20.0, alibi_slopes=slopes,
     )
     want = flash_attention_quant(
         q, qkv, lengths, causal=True, softcap=20.0, alibi_slopes=slopes,
-        block_sizes=BlockSizes(block_q=128, block_k_major=PS, block_k=PS),
-        interpret=True,
+        block_sizes=BlockSizes(block_q=128, block_k=PS),
     )
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-5)
 

@@ -13,7 +13,6 @@ from flash_attention_metal_tpu.kernels.quant import (
 )
 from flash_attention_metal_tpu.reference import attention_reference, make_qkv
 
-INTERPRET = jax.default_backend() != "tpu"
 
 
 def max_abs_diff(a, b):
@@ -25,7 +24,7 @@ def test_quantize_roundtrip(rng_key, dtype):
     _, k, v = make_qkv(rng_key, (1, 2, 256, 64))
     qkv = quantize_kv(k, v, dtype=dtype)
     assert qkv.k_q.dtype == jnp.dtype(dtype)
-    assert qkv.k_scale.shape == (1, 2, 2, 128)
+    assert qkv.k_scale.shape == (1, 2, 256)
     k2, v2 = dequantize_kv(qkv, jnp.float32)
     # int8: error <= scale/2 ~ 1/254 per element for uniform(-1,1) inputs.
     # fp8 e4m3: 3 mantissa bits -> ~6% relative error near the scale max.
@@ -39,7 +38,7 @@ def test_quantize_roundtrip(rng_key, dtype):
 def test_quant_attention_vs_oracle(rng_key, causal, dtype):
     q, k, v = make_qkv(rng_key, (1, 2, 256, 64), dtype=jnp.bfloat16)
     qkv = quantize_kv(k, v, dtype=dtype)
-    got = flash_attention_quant(q, qkv, causal=causal, interpret=INTERPRET)
+    got = flash_attention_quant(q, qkv, causal=causal)
     want = attention_reference(q, k, v, causal=causal)
     # Reference half-precision forward tolerance class (main.mm:452): int8
     # per-token quant of uniform(-1,1) keys lands within ~2e-2; fp8 e4m3's
@@ -52,7 +51,7 @@ def test_quant_attention_matches_dequant_path(rng_key):
     """Fused-scale kernel == dequantize-then-flash (tight, same rounding)."""
     q, k, v = make_qkv(rng_key, (1, 2, 256, 64), dtype=jnp.bfloat16)
     qkv = quantize_kv(k, v, dtype=jnp.int8)
-    got = flash_attention_quant(q, qkv, interpret=INTERPRET)
+    got = flash_attention_quant(q, qkv)
     k2, v2 = dequantize_kv(qkv, jnp.float32)
     want = attention_reference(q, k2, v2)
     assert max_abs_diff(got, want) < 1e-2
@@ -61,15 +60,13 @@ def test_quant_attention_matches_dequant_path(rng_key):
 def test_quant_lse(rng_key):
     q, k, v = make_qkv(rng_key, (1, 1, 256, 64), dtype=jnp.bfloat16)
     qkv = quantize_kv(k, v, dtype=jnp.int8)
-    o, lse_lanes = flash_attention_quant(
-        q, qkv, causal=True, save_lse=True, interpret=INTERPRET
-    )
-    assert lse_lanes.shape == (1, 1, 256, 128)
+    o, lse = flash_attention_quant(q, qkv, causal=True, save_lse=True)
+    assert lse.shape == (1, 1, 256)
     from flash_attention_metal_tpu.reference import attention_reference_with_lse
 
     _, want_lse = attention_reference_with_lse(q, k, v, causal=True)
     np.testing.assert_allclose(
-        np.asarray(lse_lanes[..., 0]), np.asarray(want_lse), atol=5e-2
+        np.asarray(lse), np.asarray(want_lse), atol=5e-2
     )
 
 
@@ -100,7 +97,7 @@ def test_quant_ragged_offsets(rng_key):
     offsets = jnp.asarray([64, 200], jnp.int32)
     qkv = quantize_kv(k, v, dtype=jnp.int8)
     got = flash_attention_quant(
-        q, qkv, offsets, causal=True, interpret=INTERPRET
+        q, qkv, offsets, causal=True
     )
     kd, vd = dequantize_kv(qkv, jnp.float32)
     want = attention_reference(
@@ -125,7 +122,6 @@ def test_quant_softcap_alibi_vs_dequant_oracle(rng_key):
     kd, vd = dequantize_kv(qkv, jnp.float32)
     got = flash_attention_quant(
         q, qkv, causal=True, softcap=15.0, alibi_slopes=slopes,
-        interpret=INTERPRET,
     )
     want = attention_reference(
         q.astype(jnp.float32), kd, vd, causal=True, softcap=15.0,
@@ -135,11 +131,14 @@ def test_quant_softcap_alibi_vs_dequant_oracle(rng_key):
     assert not bool(jnp.any(jnp.isnan(got)))
 
 
-def test_quant_alibi_requires_causal(rng_key):
+@pytest.mark.parametrize("causal", [False, True])
+def test_quant_alibi_requires_causal(rng_key, causal):
+    """ALiBi on the 8-bit cache matches the oracle on the dequantized
+    cache, causal or not (the bias needs no causal structure)."""
     q, k, v = make_qkv(rng_key, (1, 2, 128, 64), dtype=jnp.bfloat16)
     qkv = quantize_kv(k, v)
-    slopes = jnp.ones((2,), jnp.float32)
-    with pytest.raises(ValueError, match="causal"):
-        flash_attention_quant(
-            q, qkv, causal=False, alibi_slopes=slopes, interpret=INTERPRET
-        )
+    slopes = jnp.asarray([0.5, 0.125], jnp.float32)
+    got = flash_attention_quant(q, qkv, causal=causal, alibi_slopes=slopes)
+    k2, v2 = dequantize_kv(qkv, jnp.float32)
+    want = attention_reference(q, k2, v2, causal=causal, alibi_slopes=slopes)
+    assert max_abs_diff(got, want) < 1e-2

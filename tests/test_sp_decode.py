@@ -338,3 +338,52 @@ def test_long_context_32k_int8_sp_decode_matches_single_device():
     np.testing.assert_allclose(
         np.asarray(logp_sp), np.asarray(logp_ref), atol=2e-5
     )
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_sharded_decode_step_logits_match_single_device(params, kv_quant):
+    """``SpStepFns.decode_step`` -- the logits a dp x tp x sp engine
+    computes, taken teacher-forced -- equals ``decode.decode_step``."""
+    import dataclasses
+
+    from flash_attention_metal_tpu.runtime.decode import decode_step
+    from flash_attention_metal_tpu.runtime.kv_cache import (
+        init_cache,
+        init_quant_cache,
+    )
+    from flash_attention_metal_tpu.runtime.sp_decode import SpStepFns
+
+    shape = (CFG.n_layers, 2, CFG.n_kv_heads, 512, CFG.head_dim)
+    rk = jax.random.PRNGKey(3)
+    lengths = jnp.asarray([300, 17], jnp.int32)
+    if kv_quant:
+        cache = init_quant_cache(*shape)
+        cache = dataclasses.replace(
+            cache,
+            k_q=jax.random.randint(rk, shape, -127, 128, jnp.int8),
+            v_q=jax.random.randint(jax.random.fold_in(rk, 1), shape, -127,
+                                   128, jnp.int8),
+            k_scale=jnp.full(shape[:-1], 0.01, jnp.float32),
+            v_scale=jnp.full(shape[:-1], 0.02, jnp.float32),
+            lengths=lengths,
+        )
+    else:
+        cache = init_cache(*shape, dtype=CFG.dtype)
+        cache = dataclasses.replace(
+            cache,
+            k=jax.random.normal(rk, shape, CFG.dtype),
+            v=jax.random.normal(jax.random.fold_in(rk, 1), shape, CFG.dtype),
+            lengths=lengths,
+        )
+    tokens = jnp.asarray([5, 9], jnp.int32)
+    active = jnp.asarray([True, True])
+    # Both steps donate the cache: give each its own buffers.
+    cache2 = jax.tree_util.tree_map(jnp.copy, cache)
+    want, _ = decode_step(params, CFG, cache, tokens, active)
+    mesh = Mesh(
+        np.array(jax.devices()[:8]).reshape(2, 2, 2), ("dp", "tp", "sp")
+    )
+    sp = SpStepFns(mesh, CFG, seq_axis="sp", head_axis="tp")
+    got, new_cache = sp.decode_step(params, cache2, tokens, active)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-4)
+    np.testing.assert_array_equal(np.asarray(new_cache.lengths), [301, 18])
